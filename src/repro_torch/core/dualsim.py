@@ -1,0 +1,742 @@
+"""Dual-simulation fixpoint engines on torch (paper Sect. 3): the edge path.
+
+Port of the JAX package's edge-list engines.  Both sweep orders carry chi
+bit-packed as ``int32 [V, nw]`` words (the reference's ``uint32`` bit
+pattern) through the whole fixpoint:
+
+* ``solve_sparse(mode="gs")`` — Gauss–Seidel: operators apply in order
+  within a sweep, each reading the freshly-shrunk chi.  Same operator order
+  as the reference, so the sweep counts are equal, not just similar.
+* ``solve_sparse(mode="jacobi_packed")`` — all operators read one frontier
+  per sweep; their shrink masks AND together.
+* ``solve_worklist`` — the paper's own sequential strategy (numpy), kept as
+  the oracle.
+
+The operands' edge layout picks the segmented-OR lowering.  On a card they
+always hold the blocked layout, run through
+:func:`repro_torch.kernels.segsum.kernel.segor_blocks` (the CUDA kernel).
+On the CPU :func:`make_sparse_operands` builds the flat edge lists, run
+through plain torch ops; CPU operands in the blocked layout (handed over
+by :func:`repro_torch.convert.operands_from_numpy`, or built by the tests)
+run the wrapper's plain version.
+
+All engines implement the same monotone operator
+
+    chi[lhs] &= chi[rhs] ×b M        (edge inequalities, Eq. 11)
+    chi[lhs] &= chi[rhs]             (copy inequalities, Eq. 15)
+
+iterated to the (unique) greatest fixpoint; order of application does not
+change the fixpoint (Knaster–Tarski on the finite powerset lattice).  JAX's
+``lax.while_loop`` becomes a host loop with one convergence read per sweep.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.segsum import kernel as segsum_kernel
+from repro_torch.kernels.segsum import ref as segsum_ref
+
+from . import bitops
+from .device import DEFAULT_DEVICE, resolve_device
+from .graph import Graph
+from .soi import FWD, CompiledSOI, SOI, build_soi, compile_soi
+
+_edge_bits = segsum_ref.edge_bits
+
+# --------------------------------------------------------------------- #
+# operand construction (numpy -> device tensors)
+# --------------------------------------------------------------------- #
+
+
+def _i32(x, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(x, np.int32), device=device)
+
+
+def _pad_table(groups: list[list[int]], pad: int) -> np.ndarray:
+    k = max((len(g) for g in groups), default=0)
+    k = max(k, 1)
+    out = np.full((len(groups), k), pad, dtype=np.int32)
+    for i, g in enumerate(groups):
+        out[i, : len(g)] = g
+    return out
+
+
+def _per_mat_tables(c: CompiledSOI, device) -> tuple[tuple, tuple]:
+    """Per-operator inequality tables.
+
+    For operator m: ``mat_rhs[m]`` lists the RHS variable of each inequality
+    using m; ``mat_table[m]`` is the per-variable padded index list into
+    those inequalities (pad = I_m, pointing at an appended all-ones row) so
+    multiple inequalities on the same LHS AND-combine with gathers only.
+    """
+    n_mats = len(c.mats)
+    rhs_by_mat: list[list[int]] = [[] for _ in range(n_mats)]
+    var_by_mat: list[list[list[int]]] = [
+        [[] for _ in range(c.n_vars)] for _ in range(n_mats)
+    ]
+    for l, r, m in zip(c.ineq_lhs, c.ineq_rhs, c.ineq_mat):
+        var_by_mat[m][l].append(len(rhs_by_mat[m]))
+        rhs_by_mat[m].append(r)
+    mat_rhs = tuple(_i32(r, device) for r in rhs_by_mat)
+    mat_table = tuple(
+        _i32(_pad_table(v, pad=len(rhs_by_mat[m])), device)
+        for m, v in enumerate(var_by_mat)
+    )
+    return mat_rhs, mat_table
+
+
+def _mat_lhs_flags(c: CompiledSOI, device) -> tuple:
+    """Per-operator ``[V, V]`` inequality flags: ``flags[m][l, r] = 1`` iff
+    the SOI holds ``chi[l] <= chi[r] ×b M_m`` (the fused engine's form of
+    ``mat_rhs`` / ``mat_table``)."""
+    flags = [np.zeros((c.n_vars, c.n_vars), np.int32) for _ in c.mats]
+    for l, r, m in zip(c.ineq_lhs, c.ineq_rhs, c.ineq_mat):
+        flags[m][l, r] = 1
+    return tuple(_i32(f, device) for f in flags)
+
+
+def _copy_tables(c: CompiledSOI, device) -> tuple[torch.Tensor, torch.Tensor]:
+    by_copy: list[list[int]] = [[] for _ in range(c.n_vars)]
+    for i, l in enumerate(c.copy_lhs):
+        by_copy[l].append(i)
+    return (
+        _i32(c.copy_rhs, device),
+        _i32(_pad_table(by_copy, pad=len(c.copy_lhs)), device),
+    )
+
+
+@dataclasses.dataclass
+class Operands:
+    """Device operands of the edge-list engines.
+
+    Words are ``int32`` views of the reference's ``uint32``; index tables
+    and edge lists are ``int32``.  The operands hold exactly one edge
+    layout: the flat per-operator lists (plain torch, CPU only) or the
+    blocked segmented-OR layout (``segor_blocks``).  Operands on a card
+    must hold the blocked layout, so the card never runs a plain version.
+    """
+
+    init: torch.Tensor  # bool [V, n]
+    mat_rhs: tuple  # per mat: int32 [I_m]
+    mat_table: tuple  # per mat: int32 [V, K_m] (padded with I_m)
+    copy_rhs: torch.Tensor  # int32 [C]
+    var_copy: torch.Tensor  # int32 [V, Kc]  (padded with C)
+    init_packed: torch.Tensor | None = None  # int32 [V, nw]
+    mat_lhs_flags: tuple | None = None  # per mat: int32 [V, V]
+    edge_src: tuple | None = None  # per-mat int32 [E_m] source nodes
+    edge_dst: tuple | None = None  # per-mat int32 [E_m] dst nodes (pad = n)
+    # blocked segmented-OR layout: edges sorted and blocked by destination
+    # window; pad rows carry the sentinel n_pad (see prepare_segor)
+    seg_src_b: tuple | None = None  # per-mat int32 [G_m, BE] source nodes
+    seg_dst_b: tuple | None = None  # per-mat int32 [G_m, BE] absolute dst
+    seg_win: tuple | None = None  # per-mat int32 [G_m] dst window
+
+    def __post_init__(self):
+        if (self.edge_src is None) == (self.seg_win is None):
+            raise ValueError(
+                "Operands hold exactly one edge layout: edge_src/edge_dst "
+                "or seg_src_b/seg_dst_b/seg_win"
+            )
+        if self.seg_win is None and self.init.device.type != "cpu":
+            raise ValueError(
+                f"operands on {self.init.device} need the blocked layout: "
+                "only the CPU runs the flat edge lists"
+            )
+
+    @property
+    def blocked(self) -> bool:
+        """Whether the edges are in the blocked segmented-OR layout."""
+        return self.seg_win is not None
+
+
+def _base_operands(c: CompiledSOI, device) -> dict:
+    mat_rhs, mat_table = _per_mat_tables(c, device)
+    copy_rhs, var_copy = _copy_tables(c, device)
+    return dict(
+        init=torch.as_tensor(np.asarray(c.init, bool), device=device),
+        # packed once on the host: the sweep starts from these words
+        init_packed=bitops.to_words(bitops.pack_np(c.init), device),
+        mat_rhs=mat_rhs,
+        mat_table=mat_table,
+        mat_lhs_flags=_mat_lhs_flags(c, device),
+        copy_rhs=copy_rhs,
+        var_copy=var_copy,
+    )
+
+
+def _cached_adj(adj_cache: dict | None, key, g: Graph, build):
+    """Adjacency depends only on (engine, mats, graph) — never on the SOI's
+    variables — so plan caches share it across templates and batch buckets.
+    Entries store the graph they were built from and only hit on the *same*
+    graph object: sharing one cache dict across graphs can never return
+    another graph's adjacency (it just misses and rebuilds)."""
+    if adj_cache is not None:
+        try:
+            hit_g, adj = adj_cache[key]
+        except KeyError:
+            pass
+        else:
+            if hit_g is g:
+                return adj
+    adj = build()
+    if adj_cache is not None:
+        adj_cache[key] = (g, adj)
+    return adj
+
+
+# Per-operator edge lists round up to this capacity multiple; pad rows use
+# the out-of-range destination id ``n`` and are dropped by the segment
+# reduce.  Rounding keeps operand shapes stable under small insert/delete
+# deltas (DESIGN.md Sect. 8).
+EDGE_PAD = 64
+
+
+def _padded_edge_list(
+    s: np.ndarray, t: np.ndarray, n: int, min_cap: int = 0
+) -> tuple[np.ndarray, np.ndarray]:
+    """(src, dst) int32 arrays padded to an ``EDGE_PAD`` multiple >= min_cap."""
+    e = len(s)
+    cap = max(-(-e // EDGE_PAD) * EDGE_PAD if e else 0, min_cap)
+    if cap == e:
+        return np.asarray(s, np.int32), np.asarray(t, np.int32)
+    ps = np.zeros(cap, np.int32)
+    pt = np.full(cap, n, np.int32)  # pad dst = n -> dropped by segment reduce
+    ps[:e], pt[:e] = s, t
+    return ps, pt
+
+
+def _oriented_edges(g: Graph, a: int, d: int) -> tuple[np.ndarray, np.ndarray]:
+    e = g.edges_for_label(a)
+    return (e[:, 0], e[:, 1]) if d == FWD else (e[:, 1], e[:, 0])
+
+
+def _segor_mat(
+    s: np.ndarray, t: np.ndarray, n: int, device, min_g: int = 0
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Blocked segmented-OR layout for one operator's RAW edge list.
+
+    Pad rows gather source 0 but carry the sentinel destination ``n_pad``,
+    which can never turn on a bit (:func:`repro_torch.kernels.segsum.kernel.
+    prepare_segor`) — crucially NOT the flat layout's pad id ``n``, which
+    would alias bit ``n`` whenever ``n`` lies inside a live window.
+    """
+    idx_b, seg_b, win, _ = segsum_kernel.prepare_segor(t, n, min_g=min_g)
+    src_b = (
+        np.asarray(s, np.int32)[idx_b]
+        if len(s)
+        else np.zeros(idx_b.shape, np.int32)
+    )
+    return _i32(src_b, device), _i32(seg_b, device), _i32(win, device)
+
+
+def _edge_layout(
+    c: CompiledSOI, g: Graph, device, blocked: bool,
+    mats: list[int] | None = None, old: Operands | None = None,
+) -> dict:
+    """The edge-layout fields of operator ``mats`` (all by default) built
+    against ``g``; the other operators carry over from ``old``, and rebuilt
+    ones keep ``old``'s padded capacity whenever their edges still fit."""
+    n = g.n_nodes
+    names = ("seg_src_b", "seg_dst_b", "seg_win") if blocked else (
+        "edge_src", "edge_dst")
+    cols = (
+        [list(getattr(old, f)) for f in names]
+        if old is not None
+        else [[None] * len(c.mats) for _ in names]
+    )
+    for m in range(len(c.mats)) if mats is None else mats:
+        s, t = _oriented_edges(g, *c.mats[m])
+        cap = 0 if old is None else int(cols[0][m].shape[0])
+        if blocked:
+            arrays = _segor_mat(s, t, n, device, min_g=cap)
+        else:
+            arrays = tuple(
+                _i32(x, device) for x in _padded_edge_list(s, t, n, cap)
+            )
+        for col, x in zip(cols, arrays):
+            col[m] = x
+    return {f: tuple(col) for f, col in zip(names, cols)}
+
+
+def make_sparse_operands(
+    c: CompiledSOI, g: Graph, adj_cache: dict | None = None,
+    *, device=DEFAULT_DEVICE,
+) -> Operands:
+    """Operands of the edge-list engines for ``c`` against ``g`` on ``device``:
+    the blocked segmented-OR layout on a card, the flat edge lists on the
+    CPU."""
+    device = resolve_device(device)
+    blocked = device.type == "cuda"
+    layout = _cached_adj(
+        adj_cache, ("sparse", tuple(c.mats), str(device), blocked), g,
+        lambda: _edge_layout(c, g, device, blocked),
+    )
+    return Operands(**layout, **_base_operands(c, device))
+
+
+# --------------------------------------------------------------------- #
+# incremental maintenance: operand patching + destabilization closure
+# --------------------------------------------------------------------- #
+def patch_operands(
+    ops: Operands,
+    c_new: CompiledSOI,
+    g: Graph,
+    touched_labels: set[int],
+    *,
+    adj_cache: dict | None = None,
+) -> Operands:
+    """Patch edge-list operands in place of a full rebuild (DESIGN.md Sect. 8).
+
+    Precondition: the delta from the operands' snapshot to ``g`` is
+    *shape-stable* (no new nodes or labels) and the SOI structure is
+    unchanged, so ``c_new.mats`` matches the old operator list and all
+    inequality tables stay valid.  Only operators whose label appears in
+    ``touched_labels`` are rebuilt against ``g``; untouched edge lists carry
+    over unchanged.  The edge layout (flat lists or blocked) keeps its
+    superseded padded capacity whenever the new edge count still fits, so
+    patched operand *shapes* stay stable.  The Eq.-13 ``init`` always
+    refreshes.  The shared ``adj_cache`` entry is re-keyed to ``g`` so
+    sibling plans pick the patched arrays up as a hit.
+    """
+    device = ops.init.device
+    touched = [
+        m for m, (la, _) in enumerate(c_new.mats) if la in touched_labels
+    ]
+    init_np = np.asarray(c_new.init, bool)
+    layout = _cached_adj(
+        adj_cache, ("sparse", tuple(c_new.mats), str(device), ops.blocked), g,
+        lambda: _edge_layout(c_new, g, device, ops.blocked, touched, ops),
+    )
+    return dataclasses.replace(
+        ops,
+        init=torch.as_tensor(init_np, device=device),
+        init_packed=bitops.to_words(bitops.pack_np(init_np), device),
+        **layout,
+    )
+
+
+def destabilized_rows(c: CompiledSOI, inserted_labels: set[int]) -> np.ndarray:
+    """SOI rows whose greatest solution can *grow* under an edge insertion.
+
+    Returns a ``bool[n_vars]`` mask.  Seed: the LHS of every inequality
+    whose operator carries an inserted label.  The seed then closes
+    transitively over the dependency direction *lhs depends on rhs* (edge
+    and copy inequalities alike).  Rows OUTSIDE the closure provably keep
+    ``gfp_new[row] <= gfp_old[row]``, which is the soundness argument for
+    re-seeding exactly the closure to ⊤ before a warm resume (DESIGN.md
+    Sect. 8.2).
+    """
+    touched_mats = {
+        m for m, (la, _) in enumerate(c.mats) if la in inserted_labels
+    }
+    grow = np.zeros(c.n_vars, dtype=bool)
+    if not touched_mats:
+        return grow
+    for lhs, m in zip(c.ineq_lhs, c.ineq_mat):
+        if int(m) in touched_mats:
+            grow[lhs] = True
+    deps = list(zip(c.ineq_lhs, c.ineq_rhs)) + list(
+        zip(c.copy_lhs, c.copy_rhs)
+    )
+    changed = True
+    while changed:
+        changed = False
+        for lhs, rhs in deps:
+            if grow[rhs] and not grow[lhs]:
+                grow[lhs] = True
+                changed = True
+    return grow
+
+
+# --------------------------------------------------------------------- #
+# packed sweep engines
+# --------------------------------------------------------------------- #
+_ALL_ONES = -1  # int32 with every bit set
+
+
+def _and_rows(x: torch.Tensor) -> torch.Tensor:
+    """AND-reduce ``[V, K, nw]`` words over K (torch has no AND reduction;
+    K is the handful of inequalities one variable has per operator)."""
+    out = x[:, 0]
+    for k in range(1, x.shape[1]):
+        out = torch.bitwise_and(out, x[:, k])
+    return out
+
+
+def _apply_copies_packed(chi_p: torch.Tensor, ops: Operands) -> torch.Tensor:
+    """Copy inequalities on bit-packed chi: word-wise gathers and ANDs.
+
+    The appended pad row is all-ones *including* trailing pad bits — AND is
+    its identity, and chi's own pad bits are already zero, so no pad bit can
+    ever turn on.
+    """
+    if ops.copy_rhs.shape[0] == 0:
+        return chi_p
+    nw = chi_p.shape[-1]
+    cvals = torch.cat([
+        chi_p[ops.copy_rhs],
+        torch.full((1, nw), _ALL_ONES, dtype=chi_p.dtype, device=chi_p.device),
+    ])
+    return torch.bitwise_and(chi_p, _and_rows(cvals[ops.var_copy]))
+
+
+def _per_var_mask_packed(y_p: torch.Tensor, m: int, ops: Operands) -> torch.Tensor:
+    """``AND_{(l,r) in ineqs_m} y[r]`` per LHS variable l, on packed words.
+
+    ``int32 [V, nw]``; rows with no operator-m inequality are all-ones (the
+    padded table entry points at an appended all-ones row); chi's pad bits
+    are already zero, so no pad bit can turn on.
+    """
+    nw = y_p.shape[-1]
+    vals = torch.cat([
+        y_p[ops.mat_rhs[m]],
+        torch.full((1, nw), _ALL_ONES, dtype=y_p.dtype, device=y_p.device),
+    ])
+    return _and_rows(vals[ops.mat_table[m]])
+
+
+def _sweep_fixpoint(
+    sweep: Callable[[torch.Tensor], torch.Tensor],
+    init: torch.Tensor,
+    max_sweeps: int | None,
+) -> tuple[torch.Tensor, int]:
+    """The fixpoint driver: iterate ``sweep`` from ``init`` until chi stops
+    changing (or ``max_sweeps``), reading convergence to the host once per
+    sweep.  Counts sweeps as the reference's ``lax.while_loop`` does: the
+    last, unchanging sweep counts.  Returns (chi, n_sweeps)."""
+    chi, it = init, 0
+    while True:
+        new = sweep(chi)
+        it += 1
+        changed = bool(torch.any(new != chi))
+        chi = new
+        if not changed or (max_sweeps is not None and it >= max_sweeps):
+            return chi, it
+
+
+def _packed_start(ops: Operands, chi0: torch.Tensor | None) -> torch.Tensor:
+    """The sweep start: the packed Eq.-13 init, ANDed with a warm start.
+
+    ``chi0`` may be bool ``[V, n]`` or already-packed ``int32 [V, nw]``
+    words (what the plan cache's chi memo feeds back).  Every sweep only
+    shrinks chi, so starting anywhere above the greatest fixpoint converges
+    to exactly that fixpoint (DESIGN.md Sect. 8.2).
+    """
+    init_p = ops.init_packed
+    if init_p is None:  # hand-built Operands: pack once, outside the loop
+        init_p = bitops.pack(ops.init)
+    if chi0 is None:
+        return init_p
+    if chi0.dtype == torch.bool:
+        chi0 = bitops.pack(chi0)
+    return torch.bitwise_and(init_p, chi0)
+
+
+def _packed_edge_fixpoint(
+    propagate: Callable[[torch.Tensor, int], torch.Tensor],
+    ops: Operands,
+    max_sweeps: int | None,
+    chi0: torch.Tensor | None = None,
+    *,
+    jacobi: bool = True,
+) -> tuple[torch.Tensor, int]:
+    """Shared driver of the packed-state edge-list engines.
+
+    ``propagate(chi_words, m)`` is operator m's segmented OR and returns
+    ``y`` already packed ``int32 [V, nw]``.  Jacobi: one frontier serves
+    every operator and all per-operator shrink masks AND together.
+    Gauss–Seidel (``jacobi=False``): operators apply sequentially, each
+    reading the freshly-shrunk chi, in the reference's order.  Returns
+    (bool chi, sweeps), unpacked once after the fixpoint.
+    """
+    n = ops.init.shape[-1]
+    n_mats = len(ops.mat_rhs)
+
+    if jacobi:
+
+        def sweep(chi_p: torch.Tensor) -> torch.Tensor:
+            shrink = None
+            for m in range(n_mats):
+                pv = _per_var_mask_packed(propagate(chi_p, m), m, ops)
+                shrink = pv if shrink is None else torch.bitwise_and(shrink, pv)
+            if shrink is not None:
+                chi_p = torch.bitwise_and(chi_p, shrink)
+            return _apply_copies_packed(chi_p, ops)
+
+    else:
+
+        def sweep(chi_p: torch.Tensor) -> torch.Tensor:
+            for m in range(n_mats):
+                y_p = propagate(chi_p, m)
+                chi_p = torch.bitwise_and(chi_p, _per_var_mask_packed(y_p, m, ops))
+            return _apply_copies_packed(chi_p, ops)
+
+    chi_p, it = _sweep_fixpoint(sweep, _packed_start(ops, chi0), max_sweeps)
+    return bitops.unpack(chi_p, n), it
+
+
+def solve_sparse(
+    ops: Operands, *, max_sweeps: int | None = None,
+    mode: str = "gs", chi0: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, int]:
+    """Edge-list engine: segmented-OR message passing over bit-packed chi.
+
+    Runs on the device the operands live on.  ``mode`` is ``"gs"``
+    (operators applied sequentially, the paper's ordering) or
+    ``"jacobi_packed"`` (one frontier per sweep); both reach the same
+    fixpoint.  The blocked layout runs through ``segor_blocks`` (on a card,
+    always: the CUDA kernel), the flat edge lists through plain torch ops
+    on the CPU.  Returns (bool chi ``[V, n]``, sweeps).
+    """
+    n = ops.init.shape[-1]
+    if not ops.blocked and ops.init.device.type != "cpu":
+        raise ValueError(
+            f"operands on {ops.init.device} need the blocked layout"
+        )
+    if mode not in ("gs", "jacobi_packed"):
+        raise ValueError(f"unknown sparse mode {mode!r}")
+
+    def propagate(frontier_p: torch.Tensor, m: int) -> torch.Tensor:
+        if ops.blocked:
+            return segsum_kernel.segor_blocks(
+                frontier_p, ops.seg_src_b[m], ops.seg_dst_b[m], ops.seg_win[m],
+                num_segments=n,
+            )
+        msgs = _edge_bits(frontier_p, ops.edge_src[m])  # int32 [V, E_m]
+        return segsum_ref.segor_words(msgs, ops.edge_dst[m], n)
+
+    return _packed_edge_fixpoint(
+        propagate, ops, max_sweeps, chi0, jacobi=(mode != "gs")
+    )
+
+
+# --------------------------------------------------------------------- #
+# the paper's sequential worklist engine (numpy reference)
+# --------------------------------------------------------------------- #
+def solve_worklist(
+    c: CompiledSOI,
+    g: Graph,
+    *,
+    heuristic: str = "sparse_first",
+    eq13_init: bool = True,
+) -> tuple[np.ndarray, int]:
+    """Paper Sect. 3.2 algorithm: pick an unstable inequality, validate or
+    update, destabilize dependents.  Heuristics from Sect. 3.3:
+
+    * ``sparse_first`` — static order preferring operators with more empty
+      columns (sparser matrices shrink the relation earlier);
+    * ``fifo`` — arrival order;
+    * row- vs column-wise evaluation of ``r`` chosen dynamically by comparing
+      ``|chi(rhs)|`` with ``|chi(lhs)|``.
+
+    Returns (chi, number of inequality evaluations).
+    """
+    n = g.n_nodes
+    chi = (
+        c.init.copy()
+        if eq13_init
+        else _eq12_init(c, g)
+    )
+    ineqs = list(zip(c.ineq_lhs, c.ineq_rhs, c.ineq_mat))
+    copies = list(zip(c.copy_lhs, c.copy_rhs))
+
+    # CSR per operator for row-wise evaluation.
+    csr: list[tuple[np.ndarray, np.ndarray]] = []
+    csc: list[tuple[np.ndarray, np.ndarray]] = []
+    nonempty_cols: list[int] = []
+    for a, d in c.mats:
+        e = g.edges_for_label(a)
+        s, t = (e[:, 0], e[:, 1]) if d == FWD else (e[:, 1], e[:, 0])
+        csr.append(_csr(s, t, n))
+        csc.append(_csr(t, s, n))
+        nonempty_cols.append(len(np.unique(t)))
+
+    if heuristic == "sparse_first":
+        order = sorted(range(len(ineqs)), key=lambda i: nonempty_cols[ineqs[i][2]])
+    else:
+        order = list(range(len(ineqs)))
+
+    # dependents: inequalities whose rhs is a given variable.
+    dep_edge: list[list[int]] = [[] for _ in range(c.n_vars)]
+    for i, (_, r, _) in enumerate(ineqs):
+        dep_edge[r].append(i)
+    dep_copy: list[list[int]] = [[] for _ in range(c.n_vars)]
+    for i, (_, r) in enumerate(copies):
+        dep_copy[r].append(i)
+
+    unstable = set(range(len(ineqs)))
+    unstable_c = set(range(len(copies)))
+    evaluations = 0
+    while unstable or unstable_c:
+        if unstable:
+            idx = next(i for i in order if i in unstable)
+            unstable.discard(idx)
+            l, r, m = ineqs[idx]
+            evaluations += 1
+            rr = _bit_product(chi[r], chi[l], csr[m], csc[m], n)
+            new = chi[l] & rr
+            if not np.array_equal(new, chi[l]):
+                chi[l] = new
+                # destabilize dependents (rhs == l); a self-loop inequality
+                # (l == r) legitimately re-enters the worklist here.
+                unstable.update(dep_edge[l])
+                unstable_c.update(dep_copy[l])
+        else:
+            idx = unstable_c.pop()
+            l, r = copies[idx]
+            evaluations += 1
+            new = chi[l] & chi[r]
+            if not np.array_equal(new, chi[l]):
+                chi[l] = new
+                unstable.update(dep_edge[l])
+                unstable_c.update(dep_copy[l])
+    return chi, evaluations
+
+
+def _eq12_init(c: CompiledSOI, g: Graph) -> np.ndarray:
+    init = np.ones((c.n_vars, g.n_nodes), dtype=bool)
+    for i, const in enumerate(c.soi.is_const):
+        if const is not None:
+            init[i] = c.init[i]
+    # labels absent from the DB still force emptiness
+    for i in range(c.n_vars):
+        if not c.init[i].any():
+            init[i] = False
+    return init
+
+
+def _csr(src: np.ndarray, dst: np.ndarray, n: int):
+    order = np.argsort(src, kind="stable")
+    s, t = src[order], dst[order]
+    ptr = np.zeros(n + 1, dtype=np.int64)
+    np.add.at(ptr, s + 1, 1)
+    np.cumsum(ptr, out=ptr)
+    return ptr, t.astype(np.int32)
+
+
+def _bit_product(
+    x: np.ndarray, lhs: np.ndarray, csr, csc, n: int
+) -> np.ndarray:
+    """r = x ×b A, evaluated row- or column-wise per the paper's heuristic."""
+    if x.sum() <= lhs.sum():
+        # row-wise: union the A-rows of set bits of x.
+        ptr, idx = csr
+        out = np.zeros(n, dtype=bool)
+        for i in np.flatnonzero(x):
+            out[idx[ptr[i] : ptr[i + 1]]] = True
+        return out
+    # column-wise: only decide the columns where lhs is set.
+    ptr, idx = csc
+    out = np.zeros(n, dtype=bool)
+    for j in np.flatnonzero(lhs):
+        out[j] = x[idx[ptr[j] : ptr[j + 1]]].any()
+    return out
+
+
+# --------------------------------------------------------------------- #
+# high-level API
+# --------------------------------------------------------------------- #
+EDGE_ENGINES = ("sparse", "jacobi_packed")
+
+
+def pattern_graph_soi(pattern: Graph) -> SOI:
+    """SOI for classic graph-to-graph dual simulation (pattern = G1)."""
+    from .sparql import BGP, Triple, Var
+
+    trs = tuple(
+        Triple(Var(f"v{s}"), int(a), Var(f"v{o}"))
+        for (s, a, o) in pattern.triples
+    )
+    return build_soi(BGP(trs))
+
+
+def largest_dual_simulation(
+    pattern: Graph,
+    db: Graph,
+    *,
+    engine: str = "sparse",
+    device=DEFAULT_DEVICE,
+) -> tuple[np.ndarray, int]:
+    """Largest dual simulation between ``pattern`` and ``db`` (Prop. 1).
+
+    Returns ``(S, sweeps)`` with ``S`` a bool matrix of shape
+    ``(pattern.n_nodes, db.n_nodes)``: ``S[v, x]`` iff x dual-simulates v.
+    """
+    soi = pattern_graph_soi(pattern)
+    # map var ids back to pattern node order: vars are created in triple
+    # order, so build the permutation explicitly.  Isolated pattern nodes
+    # (no incident edges) are unconstrained: simulated by every db node.
+    c = compile_soi(soi, db)
+    seen = {b: i for i, b in enumerate(soi.base)}
+    isolated = [n for n in range(pattern.n_nodes) if f"v{n}" not in seen]
+
+    def reorder(chi: np.ndarray) -> np.ndarray:
+        out = np.ones((pattern.n_nodes, db.n_nodes), dtype=bool)
+        for node in range(pattern.n_nodes):
+            if node not in isolated:
+                out[node] = chi[seen[f"v{node}"]]
+        return out
+
+    chi, it = solve_compiled(c, db, engine=engine, device=device)
+    return reorder(chi), it
+
+
+def solve_compiled(
+    c: CompiledSOI,
+    g: Graph,
+    *,
+    engine: str = "sparse",
+    chi0: np.ndarray | None = None,
+    device=DEFAULT_DEVICE,
+) -> tuple[np.ndarray, int]:
+    """Solve a compiled SOI with the chosen engine; returns (chi, iters).
+
+    Engines: ``sparse`` (Gauss–Seidel), ``jacobi_packed`` (one frontier per
+    sweep), ``worklist`` (numpy reference, host only).  ``chi0`` warm-starts
+    the edge engines from a previous fixpoint (callers are responsible for
+    the re-seeding rule — use :func:`resume_fixpoint` for the safe path).
+    """
+    if engine == "worklist":
+        if chi0 is not None:
+            raise ValueError("the worklist engine does not take a warm start")
+        return solve_worklist(c, g)
+    if engine not in EDGE_ENGINES:
+        raise ValueError(f"unknown engine {engine!r}")
+    device = resolve_device(device)
+    if chi0 is not None:
+        chi0 = torch.as_tensor(np.asarray(chi0, dtype=bool), device=device)
+    chi, it = solve_sparse(
+        make_sparse_operands(c, g, device=device),
+        mode=("gs" if engine == "sparse" else "jacobi_packed"),
+        chi0=chi0,
+    )
+    return chi.cpu().numpy(), it
+
+
+def resume_fixpoint(
+    c: CompiledSOI,
+    g: Graph,
+    chi0: np.ndarray,
+    *,
+    inserted_labels: set[int] | frozenset[int] = frozenset(),
+    engine: str = "sparse",
+    device=DEFAULT_DEVICE,
+) -> tuple[np.ndarray, int]:
+    """Warm-started fixpoint: resume from a previous snapshot's solution.
+
+    ``chi0`` is the greatest solution computed against the *previous* graph
+    snapshot; ``c`` is the SOI re-compiled against the mutated graph ``g``.
+    Deletions only shrink the solution, so resuming from ``chi0 ∧ init_new``
+    is exact; for insertions, rows in the :func:`destabilized_rows` closure
+    of the inserted labels are re-seeded to ⊤ first (DESIGN.md 8.2).
+
+    Returns ``(chi, sweeps)`` bit-identical to a cold solve on ``g``.
+    """
+    chi0 = np.array(chi0, dtype=bool, copy=True)
+    if inserted_labels:
+        chi0[destabilized_rows(c, set(inserted_labels))] = True
+    return solve_compiled(c, g, engine=engine, chi0=chi0, device=device)

@@ -1,0 +1,296 @@
+"""Edge-labeled directed graphs and graph databases (paper Sect. 2).
+
+A graph is ``G = (V, Sigma, E)`` with ``E ⊆ V × Sigma × V``.  Nodes and labels
+are dictionary-encoded to dense ints.  Three physical layouts coexist:
+
+* **triples** — ``(E, 3) int32`` array of (src, label, dst); canonical form.
+* **per-label CSR** — forward map F_a / backward map B_a (paper's adjacency
+  maps) as index arrays; used by the numpy reference engines and the join
+  evaluator.
+* **dense boolean / bit-packed adjacency** — per-label ``bool[n, n]`` or
+  ``uint32[n, n/32]`` matrices; used by the MXU / Pallas engines (viable up to
+  ~64k nodes per shard; the sparse edge-list engine covers DB scale).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterable
+
+import numpy as np
+
+from . import bitops
+
+# Hard budget on any [n, n] plane: past this, a dense adjacency (or the
+# transient dense build inside packed_adjacency) cannot be materialized at
+# all — construction raises MemoryError instead of OOMing the host, and
+# engine.cost refuses the dense-layout engine tier before it gets here
+# (the RDF workload runs where this is structurally impossible).
+DENSE_ADJ_MAX_BYTES = 2 << 30
+
+
+@dataclasses.dataclass
+class Graph:
+    """An edge-labeled directed graph over dense int ids."""
+
+    n_nodes: int
+    n_labels: int
+    triples: np.ndarray  # (E, 3) int32: (src, label, dst)
+    node_names: list[str] | None = None
+    label_names: list[str] | None = None
+
+    # lazily built indexes
+    _fwd_csr: dict | None = dataclasses.field(default=None, repr=False)
+    _bwd_csr: dict | None = dataclasses.field(default=None, repr=False)
+    _node_index: dict | None = dataclasses.field(default=None, repr=False)
+    _label_index: dict | None = dataclasses.field(default=None, repr=False)
+
+    # ------------------------------------------------------------------ #
+    # constructors
+    # ------------------------------------------------------------------ #
+    @staticmethod
+    def from_triples(
+        triples: Iterable[tuple[str, str, str]],
+    ) -> "Graph":
+        """Build from (subject, predicate, object) string triples."""
+        nodes: dict[str, int] = {}
+        labels: dict[str, int] = {}
+        enc = []
+        for s, p, o in triples:
+            si = nodes.setdefault(s, len(nodes))
+            pi = labels.setdefault(p, len(labels))
+            oi = nodes.setdefault(o, len(nodes))
+            enc.append((si, pi, oi))
+        arr = np.asarray(enc, dtype=np.int32).reshape(-1, 3)
+        return Graph(
+            n_nodes=len(nodes),
+            n_labels=len(labels),
+            triples=arr,
+            node_names=list(nodes),
+            label_names=list(labels),
+        )
+
+    @staticmethod
+    def from_arrays(n_nodes: int, n_labels: int, triples: np.ndarray) -> "Graph":
+        triples = np.asarray(triples, dtype=np.int32).reshape(-1, 3)
+        if len(triples):
+            assert triples[:, [0, 2]].max() < n_nodes, "node id out of range"
+            assert triples[:, 1].max() < n_labels, "label id out of range"
+        return Graph(n_nodes=n_nodes, n_labels=n_labels, triples=triples)
+
+    # ------------------------------------------------------------------ #
+    # id helpers
+    # ------------------------------------------------------------------ #
+    def node_index(self) -> dict[str, int]:
+        """Cached name -> id map over ``node_names`` (snapshots are
+        immutable, so building it once per graph is safe)."""
+        if self._node_index is None:
+            assert self.node_names is not None
+            self._node_index = {n: i for i, n in enumerate(self.node_names)}
+        return self._node_index
+
+    def label_index(self) -> dict[str, int]:
+        """Cached name -> id map over ``label_names``."""
+        if self._label_index is None:
+            assert self.label_names is not None
+            self._label_index = {n: i for i, n in enumerate(self.label_names)}
+        return self._label_index
+
+    def node_id(self, name: str) -> int:
+        return self.node_index()[name]
+
+    def label_id(self, name: str) -> int:
+        return self.label_index()[name]
+
+    @property
+    def n_edges(self) -> int:
+        return int(self.triples.shape[0])
+
+    # ------------------------------------------------------------------ #
+    # per-label edge lists (sparse engine / segment message passing)
+    # ------------------------------------------------------------------ #
+    def edges_for_label(self, a: int) -> np.ndarray:
+        """(Ea, 2) int32 (src, dst) rows with label ``a``."""
+        m = self.triples[:, 1] == a
+        return self.triples[m][:, [0, 2]]
+
+    def label_histogram(self) -> np.ndarray:
+        return np.bincount(self.triples[:, 1], minlength=self.n_labels)
+
+    # ------------------------------------------------------------------ #
+    # CSR adjacency maps (paper's F^a / B^a) — numpy reference engines
+    # ------------------------------------------------------------------ #
+    def fwd(self, a: int, v: int) -> np.ndarray:
+        """F^a(v): successor set of v via a-labeled edges."""
+        self._build_csr()
+        ptr, idx = self._fwd_csr[a]
+        return idx[ptr[v] : ptr[v + 1]]
+
+    def bwd(self, a: int, v: int) -> np.ndarray:
+        """B^a(v): predecessor set of v via a-labeled edges."""
+        self._build_csr()
+        ptr, idx = self._bwd_csr[a]
+        return idx[ptr[v] : ptr[v + 1]]
+
+    def _build_csr(self) -> None:
+        if self._fwd_csr is not None:
+            return
+        self._fwd_csr, self._bwd_csr = {}, {}
+        for a in range(self.n_labels):
+            e = self.edges_for_label(a)
+            self._fwd_csr[a] = _csr(e[:, 0], e[:, 1], self.n_nodes)
+            self._bwd_csr[a] = _csr(e[:, 1], e[:, 0], self.n_nodes)
+
+    # ------------------------------------------------------------------ #
+    # dense / packed adjacency (MXU + Pallas engines)
+    # ------------------------------------------------------------------ #
+    def dense_adjacency(self, a: int, backward: bool = False) -> np.ndarray:
+        """bool[n, n] forward (or backward) adjacency matrix for label a.
+
+        Raises ``MemoryError`` when the [n, n] plane would exceed
+        ``DENSE_ADJ_MAX_BYTES`` — at RDF scale the dense tier does not
+        exist, and failing here (cheaply, before allocation) is what the
+        ``--rdf`` bench asserts.
+        """
+        if self.n_nodes * self.n_nodes > DENSE_ADJ_MAX_BYTES:
+            raise MemoryError(
+                f"dense [n, n] adjacency at n={self.n_nodes} needs "
+                f"{self.n_nodes * self.n_nodes} bytes > budget "
+                f"{DENSE_ADJ_MAX_BYTES}; use the edge-list engines"
+            )
+        e = self.edges_for_label(a)
+        m = np.zeros((self.n_nodes, self.n_nodes), dtype=bool)
+        if backward:
+            m[e[:, 1], e[:, 0]] = True
+        else:
+            m[e[:, 0], e[:, 1]] = True
+        return m
+
+    def packed_adjacency(self, a: int, backward: bool = False) -> np.ndarray:
+        """uint32[n, ceil(n/32)] bit-packed adjacency for label a."""
+        return bitops.pack_np(self.dense_adjacency(a, backward))
+
+    def summary_fwd(self, a: int) -> np.ndarray:
+        """Paper's f^a: bool[n], bit i set iff node i has an outgoing a-edge."""
+        e = self.edges_for_label(a)
+        out = np.zeros(self.n_nodes, dtype=bool)
+        out[e[:, 0]] = True
+        return out
+
+    def summary_bwd(self, a: int) -> np.ndarray:
+        """Paper's b^a: bool[n], bit i set iff node i has an incoming a-edge."""
+        e = self.edges_for_label(a)
+        out = np.zeros(self.n_nodes, dtype=bool)
+        out[e[:, 1]] = True
+        return out
+
+
+def _csr(src: np.ndarray, dst: np.ndarray, n: int) -> tuple[np.ndarray, np.ndarray]:
+    order = np.argsort(src, kind="stable")
+    src, dst = src[order], dst[order]
+    ptr = np.zeros(n + 1, dtype=np.int64)
+    np.add.at(ptr, src + 1, 1)
+    np.cumsum(ptr, out=ptr)
+    return ptr, dst.astype(np.int32)
+
+
+def subgraph_triples(g: Graph, triple_mask: np.ndarray) -> Graph:
+    """Graph restricted to the triples selected by ``triple_mask``."""
+    return Graph(
+        n_nodes=g.n_nodes,
+        n_labels=g.n_labels,
+        triples=g.triples[triple_mask],
+        node_names=g.node_names,
+        label_names=g.label_names,
+    )
+
+
+# --------------------------------------------------------------------- #
+# deltas between snapshots (incremental maintenance; DESIGN.md Sect. 8)
+# --------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class GraphDelta:
+    """The difference between two consecutive graph snapshots.
+
+    A mutation source (``repro_torch.db.GraphDB``) records one ``GraphDelta`` per
+    version bump; the engine composes them to decide whether a superseded
+    plan is *resumable* (dictionary and node axis unchanged — operands can
+    be patched in place and the old fixpoint warm-starts the new solve) or
+    *cold* (shape change: rebuild from scratch).  Triples are int id rows,
+    valid in both snapshots whenever :attr:`shape_stable` holds (ids are
+    stable across mutations; deletes never drop names).
+    """
+
+    inserted: np.ndarray  # (K, 3) int32 (src, label, dst) rows added
+    deleted: np.ndarray  # (K, 3) int32 rows removed
+    nodes_before: int
+    nodes_after: int
+    labels_before: int
+    labels_after: int
+
+    @property
+    def shape_stable(self) -> bool:
+        """True iff the dictionary did not grow: no new nodes or labels.
+
+        Shape-stable deltas keep every compiled operand shape (chi width,
+        dense/packed adjacency) and every name -> id mapping valid, which is
+        the precondition for patching a plan instead of rebuilding it.
+        """
+        return (
+            self.nodes_after == self.nodes_before
+            and self.labels_after == self.labels_before
+        )
+
+    @property
+    def has_insertions(self) -> bool:
+        """True iff the delta adds edges (the fixpoint may *grow*)."""
+        return len(self.inserted) > 0
+
+    @property
+    def n_changes(self) -> int:
+        """Total number of edge insertions + deletions."""
+        return len(self.inserted) + len(self.deleted)
+
+    def touched_labels(self) -> set[int]:
+        """Label ids with at least one inserted or deleted edge."""
+        out: set[int] = set()
+        if len(self.inserted):
+            out.update(int(x) for x in np.unique(self.inserted[:, 1]))
+        if len(self.deleted):
+            out.update(int(x) for x in np.unique(self.deleted[:, 1]))
+        return out
+
+    def inserted_labels(self) -> set[int]:
+        """Label ids with at least one *inserted* edge (these destabilize
+        dependent SOI rows; deletions alone never do)."""
+        if not len(self.inserted):
+            return set()
+        return {int(x) for x in np.unique(self.inserted[:, 1])}
+
+    def compose(self, later: "GraphDelta") -> "GraphDelta":
+        """The delta of applying ``self`` then ``later`` (cancelling an
+        insert against a later delete of the same triple and vice versa)."""
+        ins = {tuple(r) for r in self.inserted.tolist()}
+        dele = {tuple(r) for r in self.deleted.tolist()}
+        for r in later.inserted.tolist():
+            t = tuple(r)
+            if t in dele:
+                dele.discard(t)
+            else:
+                ins.add(t)
+        for r in later.deleted.tolist():
+            t = tuple(r)
+            if t in ins:
+                ins.discard(t)
+            else:
+                dele.add(t)
+        as_rows = lambda s: (
+            np.asarray(sorted(s), dtype=np.int32).reshape(-1, 3)
+        )
+        return GraphDelta(
+            inserted=as_rows(ins),
+            deleted=as_rows(dele),
+            nodes_before=self.nodes_before,
+            nodes_after=later.nodes_after,
+            labels_before=self.labels_before,
+            labels_after=later.labels_after,
+        )
