@@ -50,13 +50,15 @@ def operands_from_numpy(fields: dict, *, device=DEFAULT_DEVICE) -> Operands:
 
     ``fields`` maps field names to numpy arrays, or to tuples of them for
     the per-operator fields; ``uint32`` words become their ``int32`` view,
-    bool stays bool and every index array becomes ``int32``.  The port's
-    operands hold one edge layout: given one, it is taken as it is (a card
-    refuses the flat lists); given both, as the reference carries them,
-    the device's own is taken, as ``make_sparse_operands`` builds it — the
-    blocked layout on a card, the flat lists on the CPU.  Fields the port's
-    ``Operands`` does not have (the dense, packed and partitioned layouts)
-    must be ``None``.
+    bool stays bool and every index array becomes ``int32``: dense
+    adjacency ``adj_dense`` stays bool ``[M, n, n]``, packed adjacency
+    ``adj_packed`` (``uint32 [M, n, nw]``) becomes its ``int32`` view.  The
+    port's operands hold one adjacency layout: given one, it is taken as it
+    is (a card refuses the flat lists); given both edge layouts, as the
+    reference carries them, the device's own is taken, as
+    ``make_sparse_operands`` builds it — the blocked layout on a card, the
+    flat lists on the CPU.  Fields the port's ``Operands`` does not have
+    (the partitioned layout) must be ``None``.
     """
     device = resolve_device(device)
     known = {f.name for f in dataclasses.fields(Operands)}

@@ -1,8 +1,23 @@
-"""Dual-simulation fixpoint engines on torch (paper Sect. 3): the edge path.
+"""Dual-simulation fixpoint engines on torch (paper Sect. 3).
 
-Port of the JAX package's edge-list engines.  Both sweep orders carry chi
-bit-packed as ``int32 [V, nw]`` words (the reference's ``uint32`` bit
-pattern) through the whole fixpoint:
+Port of the JAX package's single-device engines, in two tiers.
+
+The dense-adjacency tier, for graphs whose ``[n, n]`` plane may be built
+(:func:`repro_torch.engine.cost.dense_tier_feasible`):
+
+* ``solve_dense`` — Gauss–Seidel over dense bool adjacency ``[M, n, n]``,
+  one f32 matrix product per operator followed by ``> 0``.
+* ``solve_packed`` — the same sweep over bit-packed ``int32 [M, n, nw]``
+  adjacency through :func:`repro_torch.kernels.bitmm.kernel.bitmm`; chi
+  stays bool between launches (the baseline ``packed_fused`` is measured
+  against).
+* ``solve_packed_fused`` — chi bit-packed end to end: one fused
+  :func:`repro_torch.kernels.bitmm.kernel.bitmm_apply` per operator does
+  product, AND-combine and change detection on packed words.
+
+The edge path, always feasible.  Both sweep orders carry chi bit-packed as
+``int32 [V, nw]`` words (the reference's ``uint32`` bit pattern) through
+the whole fixpoint:
 
 * ``solve_sparse(mode="gs")`` — Gauss–Seidel: operators apply in order
   within a sweep, each reading the freshly-shrunk chi.  Same operator order
@@ -18,7 +33,8 @@ always hold the blocked layout, run through
 On the CPU :func:`make_sparse_operands` builds the flat edge lists, run
 through plain torch ops; CPU operands in the blocked layout (handed over
 by :func:`repro_torch.convert.operands_from_numpy`, or built by the tests)
-run the wrapper's plain version.
+run the wrapper's plain version.  The packed tier's kernels likewise run
+their plain versions on CPU operands and launch on card operands.
 
 All engines implement the same monotone operator
 
@@ -37,13 +53,14 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.kernels.bitmm import kernel as bitmm_kernel
 from repro_torch.kernels.segsum import kernel as segsum_kernel
 from repro_torch.kernels.segsum import ref as segsum_ref
 
 from . import bitops
 from .device import DEFAULT_DEVICE, resolve_device
 from .graph import Graph
-from .soi import FWD, CompiledSOI, SOI, build_soi, compile_soi
+from .soi import BWD, FWD, CompiledSOI, SOI, build_soi, compile_soi
 
 _edge_bits = segsum_ref.edge_bits
 
@@ -111,13 +128,15 @@ def _copy_tables(c: CompiledSOI, device) -> tuple[torch.Tensor, torch.Tensor]:
 
 @dataclasses.dataclass
 class Operands:
-    """Device operands of the edge-list engines.
+    """Device operands shared by the engines.
 
     Words are ``int32`` views of the reference's ``uint32``; index tables
-    and edge lists are ``int32``.  The operands hold exactly one edge
-    layout: the flat per-operator lists (plain torch, CPU only) or the
-    blocked segmented-OR layout (``segor_blocks``).  Operands on a card
-    must hold the blocked layout, so the card never runs a plain version.
+    and edge lists are ``int32``.  The operands hold exactly one adjacency
+    layout: dense ``bool [M, n, n]`` (``dense``), packed ``int32 [M, n,
+    nw]`` (``packed``, ``packed_fused``), the flat per-operator edge lists
+    (plain torch, CPU only) or the blocked segmented-OR layout
+    (``segor_blocks``).  A card takes every layout but the flat lists, so
+    the card never runs a plain version.
     """
 
     init: torch.Tensor  # bool [V, n]
@@ -127,6 +146,8 @@ class Operands:
     var_copy: torch.Tensor  # int32 [V, Kc]  (padded with C)
     init_packed: torch.Tensor | None = None  # int32 [V, nw]
     mat_lhs_flags: tuple | None = None  # per mat: int32 [V, V]
+    adj_dense: torch.Tensor | None = None  # bool [M, n, n]
+    adj_packed: torch.Tensor | None = None  # int32 [M, n, nw]
     edge_src: tuple | None = None  # per-mat int32 [E_m] source nodes
     edge_dst: tuple | None = None  # per-mat int32 [E_m] dst nodes (pad = n)
     # blocked segmented-OR layout: edges sorted and blocked by destination
@@ -136,15 +157,17 @@ class Operands:
     seg_win: tuple | None = None  # per-mat int32 [G_m] dst window
 
     def __post_init__(self):
-        if (self.edge_src is None) == (self.seg_win is None):
+        layouts = (self.adj_dense, self.adj_packed, self.edge_src, self.seg_win)
+        if sum(x is not None for x in layouts) != 1:
             raise ValueError(
-                "Operands hold exactly one edge layout: edge_src/edge_dst "
-                "or seg_src_b/seg_dst_b/seg_win"
+                "Operands hold exactly one edge layout: adj_dense, "
+                "adj_packed, edge_src/edge_dst or seg_src_b/seg_dst_b/seg_win"
             )
-        if self.seg_win is None and self.init.device.type != "cpu":
+        if self.edge_src is not None and self.init.device.type != "cpu":
             raise ValueError(
-                f"operands on {self.init.device} need the blocked layout: "
-                "only the CPU runs the flat edge lists"
+                f"operands on {self.init.device} need the blocked layout "
+                "(or the dense or packed one): only the CPU runs the flat "
+                "edge lists"
             )
 
     @property
@@ -186,6 +209,55 @@ def _cached_adj(adj_cache: dict | None, key, g: Graph, build):
     if adj_cache is not None:
         adj_cache[key] = (g, adj)
     return adj
+
+
+def _adjacency(
+    c: CompiledSOI, g: Graph, mats: list[int], packed: bool, device
+) -> torch.Tensor:
+    """Stacked adjacency of operators ``mats``: bool ``[len(mats), n, n]``
+    or packed ``int32 [len(mats), n, nw]``, filled one operator at a time so
+    the host never holds more than one operator's plane."""
+    n = g.n_nodes
+    width = bitops.packed_width(n) if packed else n
+    out = torch.empty((len(mats), n, width),
+                      dtype=torch.int32 if packed else torch.bool,
+                      device=device)
+    for k, m in enumerate(mats):
+        a, d = c.mats[m]
+        if packed:
+            plane = g.packed_adjacency(a, backward=(d == BWD)).view(np.int32)
+        else:
+            plane = g.dense_adjacency(a, backward=(d == BWD))
+        out[k] = torch.from_numpy(plane)
+    return out
+
+
+def make_dense_operands(
+    c: CompiledSOI, g: Graph, adj_cache: dict | None = None,
+    *, device=DEFAULT_DEVICE,
+) -> Operands:
+    """Operands of the ``dense`` engine: bool ``[M, n, n]`` adjacency."""
+    device = resolve_device(device)
+    adj = _cached_adj(
+        adj_cache, ("dense", tuple(c.mats), str(device)), g,
+        lambda: _adjacency(c, g, list(range(len(c.mats))), False, device),
+    )
+    return Operands(adj_dense=adj, **_base_operands(c, device))
+
+
+def make_packed_operands(
+    c: CompiledSOI, g: Graph, adj_cache: dict | None = None,
+    *, device=DEFAULT_DEVICE,
+) -> Operands:
+    """Operands of the ``packed`` and ``packed_fused`` engines: bit-packed
+    ``int32 [M, n, nw]`` adjacency, row ``i`` of operator m holding the
+    successors of node ``i``."""
+    device = resolve_device(device)
+    adj = _cached_adj(
+        adj_cache, ("packed", tuple(c.mats), str(device)), g,
+        lambda: _adjacency(c, g, list(range(len(c.mats))), True, device),
+    )
+    return Operands(adj_packed=adj, **_base_operands(c, device))
 
 
 # Per-operator edge lists round up to this capacity multiple; pad rows use
@@ -289,28 +361,48 @@ def patch_operands(
     *,
     adj_cache: dict | None = None,
 ) -> Operands:
-    """Patch edge-list operands in place of a full rebuild (DESIGN.md Sect. 8).
+    """Patch device operands in place of a full rebuild (DESIGN.md Sect. 8).
 
     Precondition: the delta from the operands' snapshot to ``g`` is
     *shape-stable* (no new nodes or labels) and the SOI structure is
     unchanged, so ``c_new.mats`` matches the old operator list and all
     inequality tables stay valid.  Only operators whose label appears in
-    ``touched_labels`` are rebuilt against ``g``; untouched edge lists carry
-    over unchanged.  The edge layout (flat lists or blocked) keeps its
-    superseded padded capacity whenever the new edge count still fits, so
-    patched operand *shapes* stay stable.  The Eq.-13 ``init`` always
-    refreshes.  The shared ``adj_cache`` entry is re-keyed to ``g`` so
-    sibling plans pick the patched arrays up as a hit.
+    ``touched_labels`` are rebuilt against ``g``; untouched adjacency rows
+    and edge lists carry over unchanged.  The edge layout (flat lists or
+    blocked) keeps its superseded padded capacity whenever the new edge
+    count still fits, so patched operand *shapes* stay stable.  Dense and
+    packed adjacency is patched out of place: the stacked tensor may be
+    shared, through ``adj_cache``, with sibling plans and with plans still
+    bound to the previous snapshot, so it is never written to.  The Eq.-13
+    ``init`` always refreshes.  The shared ``adj_cache`` entry is re-keyed
+    to ``g`` so sibling plans pick the patched arrays up as a hit.
     """
     device = ops.init.device
     touched = [
         m for m, (la, _) in enumerate(c_new.mats) if la in touched_labels
     ]
     init_np = np.asarray(c_new.init, bool)
-    layout = _cached_adj(
-        adj_cache, ("sparse", tuple(c_new.mats), str(device), ops.blocked), g,
-        lambda: _edge_layout(c_new, g, device, ops.blocked, touched, ops),
-    )
+    if ops.adj_dense is not None or ops.adj_packed is not None:
+        packed = ops.adj_packed is not None
+        adj = ops.adj_packed if packed else ops.adj_dense
+
+        def patch_adjacency():
+            if not touched:
+                return adj
+            rows = _adjacency(c_new, g, touched, packed, device)
+            index = torch.as_tensor(touched, device=device)
+            return adj.index_copy(0, index, rows)  # a new tensor
+
+        kind = "packed" if packed else "dense"
+        layout = {f"adj_{kind}": _cached_adj(
+            adj_cache, (kind, tuple(c_new.mats), str(device)), g,
+            patch_adjacency,
+        )}
+    else:
+        layout = _cached_adj(
+            adj_cache, ("sparse", tuple(c_new.mats), str(device), ops.blocked),
+            g, lambda: _edge_layout(c_new, g, device, ops.blocked, touched, ops),
+        )
     return dataclasses.replace(
         ops,
         init=torch.as_tensor(init_np, device=device),
@@ -493,10 +585,8 @@ def solve_sparse(
     on the CPU.  Returns (bool chi ``[V, n]``, sweeps).
     """
     n = ops.init.shape[-1]
-    if not ops.blocked and ops.init.device.type != "cpu":
-        raise ValueError(
-            f"operands on {ops.init.device} need the blocked layout"
-        )
+    if ops.edge_src is None and not ops.blocked:
+        raise ValueError("solve_sparse needs an edge layout")
     if mode not in ("gs", "jacobi_packed"):
         raise ValueError(f"unknown sparse mode {mode!r}")
 
@@ -512,6 +602,147 @@ def solve_sparse(
     return _packed_edge_fixpoint(
         propagate, ops, max_sweeps, chi0, jacobi=(mode != "gs")
     )
+
+
+# --------------------------------------------------------------------- #
+# the dense-adjacency tier
+# --------------------------------------------------------------------- #
+def _per_var_mask(y: torch.Tensor, m: int, ops: Operands) -> torch.Tensor:
+    """``AND_{(l,r) in ineqs_m} y[r]`` per LHS variable l (gathers only).
+
+    Bool ``[V, n]``; rows with no operator-m inequality are all-True (the
+    padded table entry points at an appended all-ones row).
+    """
+    n = y.shape[-1]
+    vals = torch.cat([
+        y[ops.mat_rhs[m]],
+        torch.ones((1, n), dtype=torch.bool, device=y.device),
+    ])
+    return vals[ops.mat_table[m]].all(dim=1)
+
+
+def _apply_mat(
+    chi: torch.Tensor, y: torch.Tensor, m: int, ops: Operands
+) -> torch.Tensor:
+    """``chi[l] &= y[rhs_l]`` for every inequality of operator m."""
+    return torch.logical_and(chi, _per_var_mask(y, m, ops))
+
+
+def _apply_copies(chi: torch.Tensor, ops: Operands) -> torch.Tensor:
+    """Copy inequalities on bool chi."""
+    if ops.copy_rhs.shape[0] == 0:
+        return chi
+    n = chi.shape[-1]
+    cvals = torch.cat([
+        chi[ops.copy_rhs],
+        torch.ones((1, n), dtype=torch.bool, device=chi.device),
+    ])
+    return torch.logical_and(chi, cvals[ops.var_copy].all(dim=1))
+
+
+def _warm_init(ops: Operands, chi0: torch.Tensor | None) -> torch.Tensor:
+    """The bool sweep start: the Eq.-13 init, ANDed with a warm start
+    ``chi0`` (a previous fixpoint, re-seeded by the caller where an
+    insertion may grow the solution — :func:`destabilized_rows`)."""
+    if chi0 is None:
+        return ops.init
+    return torch.logical_and(ops.init, chi0)
+
+
+def _fixpoint(
+    propagate_m: Callable[[torch.Tensor, int], torch.Tensor],
+    ops: Operands,
+    max_sweeps: int | None,
+    chi0: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, int]:
+    """Gauss–Seidel sweeps over bool chi: one product ``y = chi ×b M_m``
+    per operator m (all variables batched), AND-updates applied at once —
+    one y tensor live at a time."""
+    n_mats = len(ops.mat_rhs)
+
+    def sweep(chi: torch.Tensor) -> torch.Tensor:
+        for m in range(n_mats):
+            chi = _apply_mat(chi, propagate_m(chi, m), m, ops)
+        return _apply_copies(chi, ops)
+
+    return _sweep_fixpoint(sweep, _warm_init(ops, chi0), max_sweeps)
+
+
+def solve_dense(
+    ops: Operands, *, max_sweeps: int | None = None,
+    chi0: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, int]:
+    """Sweeps with dense boolean products: OR-AND as an f32 ``(+, x)``
+    matrix product followed by ``> 0``.  Returns (bool chi, sweeps)."""
+    if ops.adj_dense is None:
+        raise ValueError("solve_dense needs dense adjacency (adj_dense)")
+
+    def propagate_m(chi: torch.Tensor, m: int) -> torch.Tensor:
+        # 0 and 1 are exact in f32 and in TF32, and every sum is an integer
+        # of at most n <= 46,340 < 2**24, so the product is exact whether or
+        # not the card runs it in TF32
+        y = chi.to(torch.float32) @ ops.adj_dense[m].to(torch.float32)
+        return y > 0
+
+    return _fixpoint(propagate_m, ops, max_sweeps, chi0)
+
+
+def solve_packed(
+    ops: Operands, *, max_sweeps: int | None = None,
+    chi0: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, int]:
+    """Sweeps over bit-packed adjacency through ``bitmm`` (the CUDA kernel
+    ``bitmm_packed`` on a card, its plain version on the CPU).
+
+    chi itself stays bool between launches: this is the baseline the fused
+    engine (:func:`solve_packed_fused`) is measured against.  Returns (bool
+    chi, sweeps).
+    """
+    if ops.adj_packed is None:
+        raise ValueError("solve_packed needs packed adjacency (adj_packed)")
+
+    def propagate_m(chi: torch.Tensor, m: int) -> torch.Tensor:
+        return bitmm_kernel.bitmm(chi, ops.adj_packed[m])
+
+    return _fixpoint(propagate_m, ops, max_sweeps, chi0)
+
+
+def solve_packed_fused(
+    ops: Operands, *, max_sweeps: int | None = None,
+    chi0: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, int]:
+    """Bit-packed chi end to end: one fused launch per operator application.
+
+    The loop carries ``int32 [V, nw]`` words; every sweep is M
+    ``bitmm_apply`` calls (packed product + AND-combine + changed word; the
+    CUDA kernel ``bitmm_apply_packed`` on a card) plus the word-wise copy
+    step.  A sweep moved iff a kernel's changed word is nonzero or the copy
+    step moved a word, read to the host once per sweep; ``max_sweeps`` caps
+    the count as in :func:`_sweep_fixpoint`.  chi is unpacked once, after
+    the fixpoint.  Returns (bool chi, sweeps).
+    """
+    if ops.adj_packed is None or ops.mat_lhs_flags is None:
+        raise ValueError(
+            "solve_packed_fused needs packed adjacency and mat_lhs_flags"
+        )
+    n = ops.init.shape[-1]
+    n_mats = len(ops.mat_rhs)
+    chi_p, it = _packed_start(ops, chi0), 0
+    while True:
+        changed = None
+        for m in range(n_mats):
+            chi_p, ch = bitmm_kernel.bitmm_apply(
+                chi_p, ops.adj_packed[m], ops.mat_lhs_flags[m]
+            )
+            changed = ch if changed is None else torch.bitwise_or(changed, ch)
+        before = chi_p
+        chi_p = _apply_copies_packed(chi_p, ops)
+        moved = torch.any(chi_p != before)
+        if changed is not None:
+            moved = torch.logical_or(moved, changed != 0)
+        it += 1
+        if not bool(moved) or (max_sweeps is not None and it >= max_sweeps):
+            return bitops.unpack(chi_p, n), it
 
 
 # --------------------------------------------------------------------- #
@@ -641,6 +872,8 @@ def _bit_product(
 # high-level API
 # --------------------------------------------------------------------- #
 EDGE_ENGINES = ("sparse", "jacobi_packed")
+DENSE_TIER_ENGINES = ("dense", "packed", "packed_fused")
+ENGINES = DENSE_TIER_ENGINES + EDGE_ENGINES
 
 
 def pattern_graph_soi(pattern: Graph) -> SOI:
@@ -695,25 +928,38 @@ def solve_compiled(
 ) -> tuple[np.ndarray, int]:
     """Solve a compiled SOI with the chosen engine; returns (chi, iters).
 
-    Engines: ``sparse`` (Gauss–Seidel), ``jacobi_packed`` (one frontier per
-    sweep), ``worklist`` (numpy reference, host only).  ``chi0`` warm-starts
-    the edge engines from a previous fixpoint (callers are responsible for
-    the re-seeding rule — use :func:`resume_fixpoint` for the safe path).
+    Engines: ``dense``, ``packed``, ``packed_fused`` (bit-packed chi end to
+    end through the fused ``bitmm_apply``), ``sparse`` (Gauss–Seidel),
+    ``jacobi_packed`` (one frontier per sweep), ``worklist`` (numpy
+    reference, host only).  ``chi0`` warm-starts any other engine from a
+    previous fixpoint (callers are responsible for the re-seeding rule —
+    use :func:`resume_fixpoint` for the safe path).
     """
     if engine == "worklist":
         if chi0 is not None:
             raise ValueError("the worklist engine does not take a warm start")
         return solve_worklist(c, g)
-    if engine not in EDGE_ENGINES:
+    if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
     device = resolve_device(device)
     if chi0 is not None:
         chi0 = torch.as_tensor(np.asarray(chi0, dtype=bool), device=device)
-    chi, it = solve_sparse(
-        make_sparse_operands(c, g, device=device),
-        mode=("gs" if engine == "sparse" else "jacobi_packed"),
-        chi0=chi0,
-    )
+    if engine == "dense":
+        chi, it = solve_dense(make_dense_operands(c, g, device=device),
+                              chi0=chi0)
+    elif engine == "packed":
+        chi, it = solve_packed(make_packed_operands(c, g, device=device),
+                               chi0=chi0)
+    elif engine == "packed_fused":
+        chi, it = solve_packed_fused(
+            make_packed_operands(c, g, device=device), chi0=chi0
+        )
+    else:
+        chi, it = solve_sparse(
+            make_sparse_operands(c, g, device=device),
+            mode=("gs" if engine == "sparse" else "jacobi_packed"),
+            chi0=chi0,
+        )
     return chi.cpu().numpy(), it
 
 

@@ -93,7 +93,10 @@ class GraphDB:
         incremental: bool = True,
     ):
         """``engine`` picks the fixpoint engine ("auto" = cost-based):
-        sparse / jacobi_packed.  ``device`` holds the operands and runs the
+        dense / packed / packed_fused / sparse / jacobi_packed (the first
+        three only on graphs whose ``[n, n]`` plane may be built, see
+        :func:`repro_torch.engine.cost.dense_tier_feasible`).  ``device``
+        holds the operands and runs the
         fixpoints: ``"cuda"`` by default, which raises without a card;
         pass ``device="cpu"`` for the plain torch versions.  ``incremental``
         enables warm-resume plan maintenance across mutations (DESIGN.md

@@ -14,8 +14,9 @@ Constants are abstracted out of a parsed query into a canonical template
 per-request constant rows as an *input* (:mod:`plan`), and later requests
 with the same shape rebind constants without building operands again
 (:mod:`cache`).  Same-template requests are solved as one disjoint-union
-SOI, padded to bucketed batch sizes (:mod:`batcher`), and the edge engine
-(sparse / jacobi_packed) is chosen per plan by a cost model (:mod:`cost`).
+SOI, padded to bucketed batch sizes (:mod:`batcher`), and the fixpoint
+engine (dense / packed / packed_fused / sparse / jacobi_packed) is chosen
+per plan by a cost model (:mod:`cost`).
 """
 from .batcher import BatchLayout, MicroBatcher, batch_layout, batched_soi, bucket_for
 from .cache import CacheStats, PlanCache

@@ -5,22 +5,37 @@ work of each engine the port has and pick the cheapest *feasible* one.  All
 engines compute the same greatest fixpoint, so the choice is purely a
 performance decision — a wrong pick is slow, never incorrect.
 
-The port has the two edge-list engines (``sparse`` and ``jacobi_packed``),
-so :data:`ENGINES` holds only those; the dense tier of the JAX package
-comes with a later slice.  Its hard feasibility gate,
-:func:`dense_tier_feasible`, is kept byte-identical so the tier boundary
-is known when it arrives.
+:data:`ENGINES` holds the five single-device engines; the JAX package's
+``partitioned`` engine needs a mesh and prices at ``inf`` on one device,
+so single-device choices are the same in both packages.
 
 Per-sweep model (V = SOI variables, n = nodes, M = distinct
 (label, direction) operators, E = total edges touched by the SOI's
 operators):
 
+* ``dense`` — M boolean products: ``V * n * n * M`` elements at
+  ``c_dense``.  Infeasible when the stacked ``bool[M, n, n]`` adjacency
+  exceeds ``DENSE_MAX_BYTES``.
+* ``packed`` — the ``bitmm_packed`` path: 32 bits per word cut the element
+  count by 32x; on the CPU the plain version stands where the JAX package
+  interprets its kernel, priced at ``c_packed_interpret``; per operator it
+  also pays a launch overhead.
+* ``packed_fused`` — chi bit-packed end to end through ``bitmm_apply``: the
+  same word count at a lower per-word cost; on the CPU the plain version
+  stands where the JAX package runs its word-wise XLA lowering, priced at
+  ``c_packed_fused_cpu``.
 * ``sparse`` / ``jacobi_packed`` — the segmented-OR sweep, priced from
   BYTES MOVED: per sweep the engine streams ``E * (8 + V)`` bytes of edge
   ids + gathered frontier messages, and ``3 * M * V * n/8`` bytes of packed
   ``y`` words through the per-variable AND (write + read + chi fold), plus
   M per-operator dispatch overheads.  Always feasible.  ``jacobi_packed``
   pays a ~2x sweep-count inflation over Gauss–Seidel.
+
+``backend`` is the device type the plan runs on; as in the JAX package,
+``"cpu"`` takes the CPU prices and any other backend (the port's
+``"cuda"``) the accelerator's.  Feasibility is a HARD gate on graph shape,
+never on calibration: past :func:`dense_tier_feasible` no dense-layout
+engine can build its operands.
 
 Every constant lives in a :class:`CostModel`: :data:`HAND_TUNED` (the JAX
 package's constants in arbitrary units) or :meth:`CostModel.from_spec`
@@ -30,20 +45,28 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.core.dualsim import EDGE_ENGINES
+from repro_torch.core import dualsim
 from repro_torch.core.graph import DENSE_ADJ_MAX_BYTES, Graph
 from repro_torch.core.soi import CompiledSOI
 
 from . import machine as machine_mod
 from .machine import MachineSpec
 
-ENGINES = EDGE_ENGINES
+ENGINES = dualsim.ENGINES
 
 # hand-tuned model constants (arbitrary units), equal to the JAX package's
+C_DENSE = 1.0 / 8.0  # per dense boolean-product element
+C_PACKED = 2.0  # per int32 word, the bitmm_packed kernel
+C_PACKED_INTERPRET = 256.0  # per word where the JAX package interprets (CPU)
+C_PACKED_FUSED = 1.0  # per word, the fused kernel: no unpack/gather chain
+C_PACKED_FUSED_CPU = 24.0  # per word, the word-wise lowering (CPU)
+PACKED_LAUNCH = 65536.0  # per-operator kernel launch overhead
 C_SPARSE = 4.0  # per edge message (admission envelope only)
 C_APPLY = 0.5  # per chi element per operator (admission envelope only)
 C_SEGOR_BYTE = 1.0  # per byte moved through the segmented-OR sweep
 JACOBI_SWEEP_FACTOR = 2.0  # Jacobi needs ~2x the sweeps of Gauss–Seidel
+DENSE_MAX_BYTES = 2 << 30  # stacked bool[M, n, n] adjacency budget
+PACKED_MAX_BYTES = 2 << 30
 # any single [n, n] plane past this cannot be BUILT (graph.dense_adjacency
 # raises MemoryError) — shared with the data layer so the model's hard gate
 # and the constructor's guard can never disagree
@@ -79,6 +102,13 @@ class CostModel:
     :class:`~repro_torch.engine.machine.MachineSpec`).
     """
 
+    c_dense: float  # per dense boolean-product element
+    c_packed: float  # per word, the compiled kernel path
+    c_packed_interpret: float  # per word, the JAX package's interpret mode
+    c_packed_fused: float  # per word, the fused kernel path
+    c_packed_fused_cpu: float  # per word, the word-wise CPU lowering
+    packed_launch: float  # per-operator launch overhead, packed engine
+    fused_launch: float  # per-operator launch overhead, fused engine
     c_sparse: float  # per edge message (admission envelope)
     c_apply: float  # per chi element per operator (admission envelope)
     c_segor_byte: float  # per byte through the segmented-OR sweep
@@ -91,12 +121,28 @@ class CostModel:
     @classmethod
     def from_spec(cls, spec: MachineSpec) -> "CostModel":
         """Derive every constant from a machine's probed ceilings (seconds),
-        with the JAX package's derivations: ``c_segor_byte = 1 / stream``,
-        ``c_sparse = 12 / stream``, ``c_apply = 0.375 / stream``,
+        with the JAX package's derivations: ``c_dense = 1 / dense``; the
+        packed and fused per-word costs are reciprocals of the measured word
+        throughputs, the lowering the spec's backend does not ship falling
+        back to the word-wise measurement; the packed engine pays the
+        measured kernel launch per operator, the fused engine the same on
+        an accelerator but only a dispatch on the CPU; ``c_segor_byte = 1 /
+        stream``, ``c_sparse = 12 / stream``, ``c_apply = 0.375 / stream``,
         ``patch_cost_per_edge = 64 / stream``, the measured dispatch
         overhead and the measured cold-build latency."""
         stream = spec.stream_bytes_per_s
+        cpu = spec.backend == "cpu"
+        shipping = 1.0 / spec.packed_words_per_s
+        words = 1.0 / spec.packed_words_per_s_xla
+        fused = 1.0 / spec.fused_words_per_s
         return cls(
+            c_dense=1.0 / spec.dense_elems_per_s,
+            c_packed=words if cpu else shipping,
+            c_packed_interpret=shipping if cpu else words,
+            c_packed_fused=fused,
+            c_packed_fused_cpu=fused if cpu else words,
+            packed_launch=spec.kernel_launch_s,
+            fused_launch=spec.dispatch_s if cpu else spec.kernel_launch_s,
             c_sparse=12.0 / stream,
             c_apply=0.375 / stream,
             c_segor_byte=1.0 / stream,
@@ -109,6 +155,13 @@ class CostModel:
 
 
 HAND_TUNED = CostModel(
+    c_dense=C_DENSE,
+    c_packed=C_PACKED,
+    c_packed_interpret=C_PACKED_INTERPRET,
+    c_packed_fused=C_PACKED_FUSED,
+    c_packed_fused_cpu=C_PACKED_FUSED_CPU,
+    packed_launch=PACKED_LAUNCH,
+    fused_launch=PACKED_LAUNCH,
     c_sparse=C_SPARSE,
     c_apply=C_APPLY,
     c_segor_byte=C_SEGOR_BYTE,
@@ -186,8 +239,32 @@ def estimate_costs(
     """
     mdl = resolve_model(spec, model, backend)
     v, m, e = _soi_stats(g, c)
-    sweep = segor_sweep_cost(v, g.n_nodes, m, e, mdl)
+    n = g.n_nodes
+    n_words = (n + 31) // 32
+    cpu = backend == "cpu"
+    # hard gate first: past the [n, n] budget no dense-layout engine can
+    # even BUILD its operands (m > 0 — an operator-free SOI builds nothing)
+    tier_ok = m == 0 or dense_tier_feasible(n)
+    dense_bytes = m * n * n
+    packed_bytes = m * n * n_words * 4
+    packed_ok = tier_ok and packed_bytes <= PACKED_MAX_BYTES
+    c_packed = mdl.c_packed_interpret if cpu else mdl.c_packed
+    c_fused = mdl.c_packed_fused_cpu if cpu else mdl.c_packed_fused
+    sweep = segor_sweep_cost(v, n, m, e, mdl)
+    inf = float("inf")
     return {
+        "dense": (
+            v * n * n * m * mdl.c_dense
+            if tier_ok and dense_bytes <= DENSE_MAX_BYTES else inf
+        ),
+        "packed": (
+            v * n * n_words * m * c_packed + m * mdl.packed_launch
+            if packed_ok else inf
+        ),
+        "packed_fused": (
+            v * n * n_words * m * c_fused + m * mdl.fused_launch
+            if packed_ok else inf
+        ),
         "sparse": sweep,
         "jacobi_packed": JACOBI_SWEEP_FACTOR * sweep,
     }
@@ -263,7 +340,13 @@ def resume_decision(
     purely a latency call.
     """
     mdl = resolve_model(spec, model, backend)
-    per_sweep = estimate_costs(g, c, backend=backend, model=mdl)[engine]
+    costs = estimate_costs(g, c, backend=backend, model=mdl)
+    per_sweep = costs[engine]
+    if per_sweep == float("inf"):
+        # the plan exists and runs with this engine whatever the model's
+        # feasibility gate says: price its sweeps with the always-finite
+        # sparse estimate instead
+        per_sweep = costs["sparse"]
     _, _, e = _soi_stats(g, c)
     frac = delta_edges / max(e, 1)
     s_cold = float(last_sweeps) if last_sweeps else DEFAULT_SWEEPS

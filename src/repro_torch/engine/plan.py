@@ -3,8 +3,10 @@
 A :class:`CompiledPlan` is everything about a query that does not depend on
 the constants: the (batched) SOI built from the template, its compilation
 against one graph's label table, and the engine's device operands.  The
-per-request constants enter as an *input* — a packed ``[K, nw]`` stack of
-one-hot rows ANDed into the packed Eq.-13 init — so rebinding a template to
+per-request constants enter as an *input* — a ``[K, n]`` stack of one-hot
+rows ANDed into the Eq.-13 init, as packed ``[K, nw]`` words for the
+engines whose chi is packed and as bool rows for ``dense`` and ``packed``
+— so rebinding a template to
 new constants builds no operands: the ``operand_builds`` counter stays at
 the one build the plan's construction made.
 
@@ -65,8 +67,9 @@ class CompiledPlan:
     ):
         """Compile ``template`` against ``db`` at batch size ``batch``.
 
-        ``engine`` is ``"auto"`` (cost model), ``"sparse"`` or
-        ``"jacobi_packed"``.  ``device`` holds the operands and runs the
+        ``engine`` is ``"auto"`` (cost model) or one of
+        :data:`repro_torch.engine.cost.ENGINES`.  ``device`` holds the
+        operands and runs the
         fixpoint (``"cuda"`` by default; raises without a card).  ``spec``
         is the :class:`repro_torch.engine.machine.MachineSpec` the
         ``engine="auto"`` selection prices with.
@@ -126,12 +129,18 @@ class CompiledPlan:
         if engine not in cost_mod.ENGINES:
             raise ValueError(f"unknown engine {engine!r}")
         self.engine = engine
-        self._mode = "jacobi_packed" if engine == "jacobi_packed" else "gs"
+        # engines whose fixpoint carries bit-packed chi take constants and
+        # warm starts as int32 words; dense and packed keep bool chi
+        self._packed_chi = engine not in ("dense", "packed")
 
         self.metrics = PlanMetrics()
-        self.operands = dualsim.make_sparse_operands(
-            self.csoi, db, adj_cache, device=self.device
-        )
+        if engine == "dense":
+            make = dualsim.make_dense_operands
+        elif engine in ("packed", "packed_fused"):
+            make = dualsim.make_packed_operands
+        else:
+            make = dualsim.make_sparse_operands
+        self.operands = make(self.csoi, db, adj_cache, device=self.device)
         self.metrics.operand_builds += 1
         self._adj_cache = adj_cache
         # incremental maintenance state (DESIGN.md Sect. 8): the last solved
@@ -180,18 +189,28 @@ class CompiledPlan:
         return rows
 
     def _run(self, const_rows: torch.Tensor, chi0: torch.Tensor | None):
-        """Scatter the packed constant rows into the packed init, AND in the
-        warm start, and run the fixpoint."""
-        init = self.operands.init_packed
+        """Scatter the constant rows into the init (packed words or bool,
+        as the engine's chi), AND in the warm start, and run the fixpoint."""
+        packed = self._packed_chi
+        init = self.operands.init_packed if packed else self.operands.init
         if const_rows.shape[0]:
             init = init.index_put(
-                (self._scatter,),
-                torch.bitwise_and(init[self._scatter], const_rows),
+                (self._scatter,), init[self._scatter] & const_rows
             )
         if chi0 is not None:
-            init = torch.bitwise_and(init, chi0)
-        ops = dataclasses.replace(self.operands, init_packed=init)
-        return dualsim.solve_sparse(ops, mode=self._mode)
+            init = init & chi0
+        ops = dataclasses.replace(
+            self.operands, **{"init_packed" if packed else "init": init}
+        )
+        if self.engine == "dense":
+            return dualsim.solve_dense(ops)
+        if self.engine == "packed":
+            return dualsim.solve_packed(ops)
+        if self.engine == "packed_fused":
+            return dualsim.solve_packed_fused(ops)
+        return dualsim.solve_sparse(
+            ops, mode="jacobi_packed" if self.engine == "jacobi_packed" else "gs"
+        )
 
     def execute(
         self, bindings: Sequence[tuple[str, ...]]
@@ -204,14 +223,21 @@ class CompiledPlan:
         start for exactly these constants, the solve resumes from it
         instead of the Eq.-13 init (same fixpoint, far fewer sweeps).
         """
-        # constants, init and warm starts all travel as packed words
-        rows = bitops.to_words(bitops.pack_np(self.const_rows(bindings)),
-                               self.device)
+        # the packed-chi engines take constants, init and warm starts as
+        # packed words; dense and packed take them as bool rows
+        rows = self.const_rows(bindings)
+        if self._packed_chi:
+            rows = bitops.to_words(bitops.pack_np(rows), self.device)
+        else:
+            rows = torch.as_tensor(rows, device=self.device)
         key = tuple(bindings)
         warm = self._warm.pop(key, None)
         chi0 = None
         if warm is not None:
-            chi0 = bitops.to_words(warm, self.device)
+            chi0 = (
+                bitops.to_words(warm, self.device) if self._packed_chi
+                else torch.as_tensor(warm, device=self.device)
+            )
             self.metrics.warm_resumes += 1
         chi, sweeps = self._run(rows, chi0)
         self.metrics.executions += 1
@@ -259,14 +285,20 @@ class CompiledPlan:
             adj_cache=cache,
         )
         grow = dualsim.destabilized_rows(self.csoi, delta.inserted_labels())
-        # stay packed: destabilized rows re-seed to the all-ones mask
-        # (trailing pad bits zero), the memo words go back verbatim
-        ones = bitops.ones_mask(self.n_nodes)
         self._warm = {}
-        for key, packed in self._chi_memo.items():
-            chi0 = packed.copy()
-            chi0[grow] = ones
-            self._warm[key] = chi0
+        if self._packed_chi:
+            # stay packed: destabilized rows re-seed to the all-ones mask
+            # (trailing pad bits zero), the memo words go back verbatim
+            ones = bitops.ones_mask(self.n_nodes)
+            for key, packed in self._chi_memo.items():
+                chi0 = packed.copy()
+                chi0[grow] = ones
+                self._warm[key] = chi0
+        else:
+            for key, packed in self._chi_memo.items():
+                chi0 = bitops.unpack_np(packed, self.n_nodes)
+                chi0[grow] = True
+                self._warm[key] = chi0
         # superseded fixpoints are warm seeds now, not current results
         self._chi_memo.clear()
         self.metrics.patches += 1

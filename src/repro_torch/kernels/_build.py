@@ -22,6 +22,7 @@ PACKAGE = Path(__file__).resolve().parent.parent
 BUILD_DIR = PACKAGE.parent.parent / "build" / "kernels"
 SOURCES = {
     "segor": PACKAGE / "kernels" / "segsum" / "csrc" / "segor.cu",
+    "bitmm": PACKAGE / "kernels" / "bitmm" / "csrc" / "bitmm.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

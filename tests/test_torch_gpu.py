@@ -1,6 +1,7 @@
-"""Card-only tests of the port (marker ``gpu``): the CUDA kernels against
-their plain PyTorch versions, and the query path on the card against the
-same path on the CPU.  A CUDA kernel has no CPU mode, so without a card
+"""Card-only tests of the port (marker ``gpu``): the CUDA kernels (the
+segmented OR and the two packed boolean products) against their plain
+PyTorch versions, and the query path on the card against the same path on
+the CPU.  A CUDA kernel has no CPU mode, so without a card
 these skip.  The file imports neither JAX nor the JAX package, so it runs
 where JAX is not installed:
 
@@ -16,6 +17,8 @@ from repro_torch import kernels
 from repro_torch.core import bitops, sparql
 from repro_torch.data import synth
 from repro_torch.db import GraphDB
+from repro_torch.kernels.bitmm import kernel as bitmm_kernel
+from repro_torch.kernels.bitmm import ref as bitmm_ref
 from repro_torch.kernels.segsum import kernel, ref
 
 pytestmark = pytest.mark.gpu
@@ -24,7 +27,7 @@ pytestmark = pytest.mark.gpu
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the segor kernel has no CPU mode")
+        pytest.skip("needs a CUDA card: a CUDA kernel has no CPU mode")
     return torch.device("cuda")
 
 
@@ -106,3 +109,97 @@ def test_query_path_on_card_matches_cpu(cuda_device):
         assert a.sweeps == b.sweeps
         for var in a.variables:
             assert np.array_equal(a.binding_mask(var), b.binding_mask(var))
+
+
+# --------------------------------------------------------------------- #
+# the packed boolean products (bitmm_apply_packed, bitmm_packed)
+# --------------------------------------------------------------------- #
+def _bitmm_case(device, v, n, seed, density=0.1):
+    rng = np.random.default_rng(seed)
+    a = rng.random((n, n)) < density
+    chi = rng.random((v, n)) < 0.6
+    flags = (rng.random((v, v)) < 0.5).astype(np.int32)
+    return (bitops.to_words(bitops.pack_np(chi), device),
+            bitops.to_words(bitops.pack_np(a), device),
+            torch.as_tensor(flags, device=device))
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 100, 1000, 4099])
+@pytest.mark.parametrize("v", [1, 5, 48, 64])
+def test_bitmm_kernels_match_plain_versions(cuda_device, v, n):
+    kernels.reset_launches()
+    chi_p, a_p, flags = _bitmm_case(cuda_device, v, n, seed=n * 100 + v)
+    new, ch = bitmm_kernel.bitmm_apply(chi_p, a_p, flags)
+    want, want_ch = bitmm_ref.bitmm_apply_ref(chi_p, a_p, flags)
+    x = bitops.unpack(chi_p, n)
+    out = bitmm_kernel.bitmm_packed(x, a_p)
+    torch.cuda.synchronize()
+    assert torch.equal(new, want) and int(ch) == int(want_ch)
+    assert torch.equal(out, bitmm_ref.bitmm_packed_ref(x, a_p))
+    assert kernels.LAUNCHES["bitmm_apply_packed"] == 1
+    assert kernels.LAUNCHES["bitmm_packed"] == 1
+
+
+def test_bitmm_kernels_edge_cases(cuda_device):
+    """Empty frontier, all-zero flags, and a chi at its fixpoint."""
+    chi_p, a_p, flags = _bitmm_case(cuda_device, 9, 300, seed=7)
+    zero = torch.zeros_like(chi_p)
+    new, ch = bitmm_kernel.bitmm_apply(zero, a_p, flags)
+    assert not new.any() and int(ch) == 0
+    assert not bitmm_kernel.bitmm_packed(bitops.unpack(zero, 300), a_p).any()
+    new, ch = bitmm_kernel.bitmm_apply(chi_p, a_p, torch.zeros_like(flags))
+    assert torch.equal(new, chi_p) and int(ch) == 0
+    for _ in range(50):
+        nxt, ch = bitmm_kernel.bitmm_apply(chi_p, a_p, flags)
+        assert (int(ch) != 0) == (not torch.equal(nxt, chi_p))
+        if int(ch) == 0:
+            break
+        chi_p = nxt
+    else:
+        raise AssertionError("fused step never converged")
+
+
+def test_bitmm_kernels_refuse_vars_past_shared_memory(cuda_device):
+    chi_p, a_p, _ = _bitmm_case(cuda_device, 1761, 64, seed=3)
+    flags = torch.zeros((1761, 1761), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        bitmm_kernel.bitmm_apply(chi_p, a_p, flags)
+
+
+def test_packed_fused_on_card_launches_kernel_never_plain(cuda_device,
+                                                          monkeypatch):
+    """Packed operands on the card run every sweep through the CUDA
+    kernels: the plain versions are never called, and the result equals
+    the worklist fixpoint."""
+    from repro_torch.core import dualsim, soi
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain version ran on the card")
+
+    monkeypatch.setattr(bitmm_ref, "bitmm_apply_ref", refuse)
+    monkeypatch.setattr(bitmm_ref, "bitmm_packed_ref", refuse)
+    g = synth.random_graph(300, 3, 1200, seed=4)
+    c = soi.compile_soi(soi.build_soi(sparql.parse(
+        "{ ?a p0 ?b . ?b p1 ?c } OPTIONAL { ?c p2 ?d }")), g)
+    ops = dualsim.make_packed_operands(c, g, device=cuda_device)
+    want, _ = dualsim.solve_worklist(c, g)
+    kernels.reset_launches()
+    chi, sweeps = dualsim.solve_packed_fused(ops)
+    assert kernels.LAUNCHES["bitmm_apply_packed"] == sweeps * len(c.mats)
+    assert np.array_equal(chi.cpu().numpy(), want)
+    chi, sweeps = dualsim.solve_packed(ops)
+    assert kernels.LAUNCHES["bitmm_packed"] == sweeps * len(c.mats)
+    assert np.array_equal(chi.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("engine", ["dense", "packed", "packed_fused"])
+def test_dense_tier_query_path_on_card_matches_cpu(cuda_device, engine):
+    g = synth.lubm_like(4, seed=0)
+    card, cpu = GraphDB(g, engine=engine), GraphDB(g, engine=engine,
+                                                   device="cpu")
+    queries = [
+        "{ ?d subOrganizationOf Univ%d . ?s memberOf ?d }" % u for u in range(4)
+    ] + [sparql.format_query(synth.lubm_l1_like())]
+    for a, b in zip(card.execute_many(queries), cpu.execute_many(queries)):
+        assert np.array_equal(a.survivor_mask, b.survivor_mask)
+        assert a.sweeps == b.sweeps and a.engine == b.engine == engine
