@@ -27,8 +27,9 @@ non-zero and prints no result.  Phases, in order, any failure fatal:
    nodes) through ``engine="packed_fused"`` and ``engine="packed"``, each
    with the launch counts zeroed just before and read just after, held
    against ``engine="sparse"`` on the card and, for sweeps, against the
-   same engines on the CPU at ``--cpu-universities``; every operator of
-   the main path's plans against the plain versions; auto-selection of
+   same engines on the CPU at ``CPU_UNIVERSITIES``; every operator of
+   the main path's plans against the plain versions, at each plan's
+   initial chi and at its chi after one sweep; auto-selection of
    ``packed_fused`` on a 16,384-node, 8M-edge random graph, checked
    against ``dense``, ``packed`` and ``sparse``; and the two kernels'
    times beside their bound, their plain versions and the dense engine's
@@ -62,6 +63,9 @@ UNION_QUERY = (
 # the largest LUBM corpus inside the dense tier: 165 nodes per university,
 # 280 * 165 = 46,200 <= 46,340 (engine.cost.dense_tier_feasible)
 DENSE_UNIVERSITIES = 280
+# the corpus (9,900 nodes) of the dense tier's sweep check against the CPU
+# port, whose plain products would take minutes at DENSE_UNIVERSITIES
+CPU_UNIVERSITIES = 60
 # the block_dense cell of src/repro/configs/dualsim_base.py: a 16k-node block
 BLOCK_DENSE = dict(n_nodes=16_384, n_labels=2, n_edges=8_000_000)
 AUTO_QUERY = "{ ?a p0 ?b . ?b p1 ?c }"
@@ -599,13 +603,13 @@ def time_bitmm(plan, clock_hz: float) -> tuple[dict, dict]:
     return out["bitmm_apply_packed"], out["bitmm_packed"]
 
 
-def phase_dense_tier(seed: int, cpu_universities: int):
+def phase_dense_tier(seed: int):
     """Phase 3b; returns the two kernels' records."""
     import numpy as np
     import torch
 
     from repro_torch import kernels
-    from repro_torch.core import sparql
+    from repro_torch.core import bitops, dualsim, sparql
     from repro_torch.data import synth
     from repro_torch.db import GraphDB
     from repro_torch.engine import canonicalize, cost
@@ -627,12 +631,15 @@ def phase_dense_tier(seed: int, cpu_universities: int):
     n_ops = 0
     for _, plan in plans_of(fused_db):  # every operator of every plan
         ops = plan.operands
-        for m in range(ops.adj_packed.shape[0]):
-            errs = [max(a, b) for a, b in zip(errs, check_bitmm(
-                ops.init_packed, ops.adj_packed[m], ops.mat_lhs_flags[m]))]
-            n_ops += 1
-    log(f"bitmm kernels == plain versions on every main-path operator "
-        f"({n_ops} operators)")
+        # the plan's initial chi, and its chi in mid-fixpoint
+        swept, _ = dualsim.solve_packed_fused(ops, max_sweeps=1)
+        for chi_p in (ops.init_packed, bitops.pack(swept)):
+            for m in range(ops.adj_packed.shape[0]):
+                errs = [max(a, b) for a, b in zip(errs, check_bitmm(
+                    chi_p, ops.adj_packed[m], ops.mat_lhs_flags[m]))]
+                n_ops += 1
+    log(f"bitmm kernels == plain versions on every main-path operator, at "
+        f"the initial chi and after one sweep ({n_ops} checks)")
     fused_rec, packed_rec = time_bitmm(plans_of(fused_db)[0][1], sm_clock_hz())
     del fused_db
     free_card()
@@ -661,7 +668,7 @@ def phase_dense_tier(seed: int, cpu_universities: int):
 
     # sweeps against the CPU port, on a smaller corpus
     t0 = time.perf_counter()
-    small = load_corpus(cpu_universities, seed)
+    small = load_corpus(CPU_UNIVERSITIES, seed)
     for engine in ("packed_fused", "packed"):
         card = serve(GraphDB(small, engine=engine), warm=False)
         cpu = serve(GraphDB(small, engine=engine, device="cpu"), warm=False)
@@ -669,7 +676,7 @@ def phase_dense_tier(seed: int, cpu_universities: int):
             same_results(name, res, cpu[name][0])
     free_card()
     log(f"packed_fused and packed on the card == the CPU port at "
-        f"{cpu_universities} universities ({small.n_nodes} nodes): survivors, "
+        f"{CPU_UNIVERSITIES} universities ({small.n_nodes} nodes): survivors, "
         f"bindings and sweeps ({time.perf_counter() - t0:.1f}s)")
 
     # auto selection on the block_dense graph
@@ -811,8 +818,6 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--universities", type=int, default=8000)
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--cpu-universities", type=int, default=30,
-                        help="corpus of the dense tier's CPU sweep check")
     args = parser.parse_args()
 
     import torch
@@ -841,7 +846,7 @@ def main() -> int:
     graph = load_corpus(args.universities, args.seed)
     db, runs, launches = phase_main_path(graph)
     phase_cross_checks(graph, runs)
-    dense_records = phase_dense_tier(args.seed, args.cpu_universities)
+    dense_records = phase_dense_tier(args.seed)
     log("phase 4: kernels at main-path shapes")
     records = phase_kernel_times(db, runs, launches) + dense_records
     log(f"total {time.perf_counter() - t_start:.1f}s")

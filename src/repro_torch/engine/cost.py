@@ -86,9 +86,10 @@ def dense_tier_feasible(n: int) -> bool:
     """Whether any ``[n, n]`` operand plane may be materialized at all.
 
     Gates dense AND both packed engines: ``graph.packed_adjacency`` packs
-    through a transient dense ``[n, n]`` build, so the packed tier is just
-    as impossible past the budget even though its *resident* operand is 32x
-    smaller.
+    straight from the edge list, with no ``[n, n]`` plane, but keeps the JAX
+    package's ``DENSE_ADJ_MAX_BYTES`` gate for parity, so both packages
+    price the packed tier out at the same ``n`` even though its *resident*
+    operand is 32x smaller.
     """
     return n * n <= DENSE_TIER_MAX_BYTES
 

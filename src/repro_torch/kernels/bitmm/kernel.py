@@ -79,14 +79,14 @@ def _device(name: str, t: torch.Tensor) -> torch.device:
 def bitmm_packed(x: torch.Tensor, a_packed: torch.Tensor) -> torch.Tensor:
     """``int32 [V, nw]``: ``out[v, jw] = OR_{i: x[v, i]} a_packed[i, jw]``.
 
-    ``x`` is the bool (or 0/1 ``uint8``) frontier ``[V, n]``.  A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel,
-    which reads the frontier as bytes.
+    ``x`` is the bool frontier ``[V, n]``.  A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel, which reads the frontier as
+    bytes.
     """
     dev = _device("bitmm_packed", x)
     n = _check_adjacency("bitmm_packed", a_packed, dev)
-    if x.dtype not in (torch.bool, torch.uint8):
-        raise TypeError("bitmm_packed takes a bool or uint8 frontier")
+    if x.dtype != torch.bool:
+        raise TypeError("bitmm_packed takes a bool frontier")
     if not x.is_contiguous():
         raise ValueError("bitmm_packed operands must be contiguous")
     if x.dim() != 2 or x.shape[1] != n:
@@ -98,10 +98,9 @@ def bitmm_packed(x: torch.Tensor, a_packed: torch.Tensor) -> torch.Tensor:
     out = torch.empty((v, nw), dtype=torch.int32, device=dev)
     if v == 0 or nw == 0:
         return out
-    flags = x.view(torch.uint8) if x.dtype == torch.bool else x
     fn, _ = _launchers()
     with torch.cuda.device(dev):
-        err = fn(flags.data_ptr(), a_packed.data_ptr(), out.data_ptr(),
+        err = fn(x.view(torch.uint8).data_ptr(), a_packed.data_ptr(), out.data_ptr(),
                  v, n, nw, warps, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"bitmm_packed launch failed: CUDA error {err}")
