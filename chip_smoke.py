@@ -1,16 +1,24 @@
 #!/usr/bin/env python3
-"""Drive the torch port's query path on one NVIDIA card and check it.
+"""Drive and check the torch port's query and serving paths on one card.
 
     python3 chip_smoke.py [--universities 8000] [--seed 0]
 
 Run from the repository root (the script puts ``src/`` on the path
 itself).  It needs one CUDA card and ``nvcc``; without a card it exits
-non-zero and prints no result.  Phases, in order, any failure fatal:
+non-zero and prints no result.  Phases, in the order they run, any
+failure fatal:
 
 1. print the card (``nvidia-smi``), build every CUDA kernel from the
    sources in the checkout, in parallel;
-2. hold each kernel against its plain PyTorch version on the card, on
-   random edge cases, for exact equality of the words;
+2. hold the segmented-OR kernel against its plain PyTorch version on the
+   card, on random edge cases, for exact equality of the words;
+2b. the segment-sum op ``ops.segsum`` on the card against its plain
+   version (``index_add_``) on the random cases of the JAX package's
+   kernel tests, f32 and f64; then, once the corpus of phase 3 is loaded,
+   messages of width 70 along its ~3.0M edges summed into its ~1.32M
+   nodes, driven through the op with the launch counts zeroed just before
+   and read just after; two launches must give the same bits; the
+   kernel's time beside its bound, its plain version and ``index_add_``;
 3. the main path at real scale: stream an LUBM-shaped corpus
    (``synth.lubm_stream``; ~3.0M triples and ~1.32M nodes at 8000
    universities) through ``rdf.dump_stream`` / ``rdf.load_stream``, serve
@@ -21,6 +29,14 @@ non-zero and prints no result.  Phases, in order, any failure fatal:
    same queries then run through a ``device="cpu"`` ``GraphDB`` (plain
    versions) and through ``engine="jacobi_packed"`` on the card, and must
    agree;
+5. serving on the card: ``AsyncServer`` with two replicas over phase 3's
+   corpus takes 64 requests of the serving template from two tenants, a
+   delete/re-insert churn, a dictionary-growing insert and a fence, with
+   every outcome ``ok`` and equal to a direct query at the same version,
+   and a warm wave under the profiler; then a poisoned request fails
+   alone, and a crashed replica is quarantined, rebuilt and answers
+   bit-identically to the healthy one.  The launch counts are zeroed just
+   before and read just after;
 3b. the dense-adjacency tier: the packed products against their plain
    versions on random cases; the same workload, mutation included, on the
    largest LUBM corpus inside the dense tier (280 universities, 46,200
@@ -70,8 +86,17 @@ CPU_UNIVERSITIES = 60
 BLOCK_DENSE = dict(n_nodes=16_384, n_labels=2, n_edges=8_000_000)
 AUTO_QUERY = "{ ?a p0 ?b . ?b p1 ?c }"
 INT32_LANES_PER_SM, SMS = 64, 132  # H100 SXM, NVIDIA's data sheet
-CARD = "cuda"  # the device of phase 3b's own tensors
+CARD = "cuda"  # the device of phases 2b, 3b and 5's own tensors and databases
+# phase 2b's full-size case: the message width of src/repro/configs/gatedgcn.py
+SEGSUM_D = 70
+# phase 5: requests, batch cap, and the deadline every request is given
+SERVE_REQUESTS, SERVE_BATCH, SERVE_DEADLINE_MS = 64, 16, 120_000.0
 KERNELS = {
+    "segsum": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/segsum/csrc/segsum.cu",
+        "replaces": "src/repro/kernels/segsum/kernel.py:89",
+    },
     "segor_blocks": {
         "route": "cuda",
         "source": "src/repro_torch/kernels/segsum/csrc/segor.cu",
@@ -205,6 +230,155 @@ def phase_kernel_cases(seed: int) -> int:
     else:
         raise AssertionError("segor accepted V past the shared-memory limit")
     return cases
+
+
+# --------------------------------------------------------------------- #
+# phase 2b: the segment-sum op against its plain version
+# --------------------------------------------------------------------- #
+def segsum_tol(dtype) -> float:
+    """rtol = atol of a segment sum against its plain version."""
+    import numpy as np
+
+    return 1e-12 if dtype == np.float64 else 1e-5
+
+
+def check_segsum(vals, ids, n, **kw) -> float:
+    """``ops.segsum`` on the card against the plain version (``index_add_``
+    on the same values and ids); two launches must give the same bits.
+    Returns the max abs difference."""
+    import torch
+
+    from repro_torch.kernels.segsum import kernel, ops, ref
+
+    got = ops.segsum(vals, ids, n, device=CARD, **kw)
+    dev = got.device
+    keep = (ids >= 0) & (ids < n)
+    want = ref.segsum_ref(torch.as_tensor(vals[keep], device=dev),
+                          torch.as_tensor(ids[keep], device=dev), n)
+    order, row_ptr = kernel.prepare_csr(ids, n)
+    vals_s = torch.as_tensor(vals[order], device=dev)
+    row_ptr = torch.as_tensor(row_ptr, device=dev)
+    again = kernel.segsum_csr(vals_s, row_ptr)
+    again2 = kernel.segsum_csr(vals_s, row_ptr)
+    if CARD == "cuda":
+        torch.cuda.synchronize()
+    shape = f"E={len(ids)}, N={n}, D={vals.shape[1]}, {vals.dtype}"
+    if got.shape != (n, vals.shape[1]) or got.dtype != want.dtype:
+        raise AssertionError(f"segsum shape/dtype {tuple(got.shape)} {got.dtype} ({shape})")
+    if not (torch.equal(got, again) and torch.equal(again, again2)):
+        raise AssertionError(f"segsum launches differ in their bits ({shape})")
+    tol = segsum_tol(vals.dtype)
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    if not torch.allclose(got, want, rtol=tol, atol=tol):
+        raise AssertionError(f"segsum kernel != plain version ({shape}, max err {err})")
+    return err
+
+
+def phase_segsum_cases(seed: int) -> tuple[int, float]:
+    """The random cases of the JAX package's segment-sum tests, and edge
+    cases of the sorted layout; returns (cases, max abs difference)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.segsum import ops
+
+    rng = np.random.default_rng(seed + 2)
+    err, cases = 0.0, 0
+    for e, n, d in ((100, 64, 8), (1000, 300, 16), (37, 513, 3),
+                    (5000, 100, 70), (4000, 700, 128), (3000, 50, 200)):
+        for dtype in (np.float32, np.float64):
+            vals = rng.normal(size=(e, d)).astype(dtype)
+            err = max(err, check_segsum(vals, rng.integers(0, n, e).astype(np.int32), n))
+            cases += 1
+    for dtype in (np.float32, np.float64):
+        vals = rng.normal(size=(200, 5)).astype(dtype)
+        err = max(err, check_segsum(vals, rng.integers(0, 40, 200).astype(np.int32), 40))
+        cases += 1
+    out = ops.segsum(np.zeros((0, 4), np.float32), np.zeros(0, np.int32), 8, device=CARD)
+    if out.shape != (8, 4) or bool(out.any()):
+        raise AssertionError("segsum of no rows is not zero")
+    out = ops.segsum(np.ones((5, 3), np.float32), np.zeros(5, np.int32), 0, device=CARD)
+    if out.shape != (0, 3):
+        raise AssertionError("segsum with no segments is not empty")
+    out = ops.segsum(np.ones((16, 4), np.float32), np.zeros(16, np.int32), 1, device=CARD)
+    if not torch.equal(out.cpu(), torch.full((1, 4), 16.0)):
+        raise AssertionError("segsum of one segment != 16")
+    bounds = np.asarray([0, 255, 256, 257, 511, 512, 599] * 10, np.int32)
+    err = max(err, check_segsum(np.ones((len(bounds), 2), np.float32), bounds, 600,
+                                block_n=256))
+    ids = rng.integers(-5, 105, 500).astype(np.int32)  # ids outside: no segment
+    err = max(err, check_segsum(rng.normal(size=(500, 3)).astype(np.float32), ids, 100))
+    cases += 5
+    for bad in (np.float16, np.int32):
+        try:
+            ops.segsum(np.ones((4, 2), bad), np.zeros(4, np.int32), 2, device=CARD)
+        except TypeError:
+            pass
+        else:
+            raise AssertionError(f"segsum accepted {bad.__name__} values")
+    return cases, err
+
+
+def phase_segsum_full(graph, seed: int) -> dict:
+    """Phase 2b at full size: width-70 messages along every edge of the
+    corpus, summed into their objects, through ``ops.segsum`` with the
+    launch counts zeroed just before and read just after; then the kernel
+    against its plain version, and its time."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.kernels.segsum import kernel, ops, ref
+
+    rng = np.random.default_rng(seed + 3)
+    ids = np.ascontiguousarray(graph.triples[:, 2], dtype=np.int32)
+    n, e, d = graph.n_nodes, len(ids), SEGSUM_D
+    vals = rng.standard_normal((e, d), dtype=np.float32)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = ops.segsum(vals, ids, n, device=CARD)
+    torch.cuda.synchronize()
+    op_s = time.perf_counter() - t0
+    launches = kernels.launch_counts().get("segsum", 0)
+    if not launches:
+        raise AssertionError("ops.segsum never launched the segsum kernel")
+    err = check_segsum(vals, ids, n)
+    dev = out.device
+    order, row_ptr = kernel.prepare_csr(ids, n)
+    vals_s = torch.as_tensor(vals[order], device=dev)
+    row_ptr = torch.as_tensor(row_ptr, device=dev)
+    vals_d = torch.as_tensor(vals, device=dev)
+    ids_d = torch.as_tensor(ids, device=dev).long()
+    if not torch.equal(kernel.segsum_csr(vals_s, row_ptr), out):
+        raise AssertionError("segsum: the op and the kernel on its layout differ")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > L2
+    ms = median_ms(lambda: kernel.segsum_csr(vals_s, row_ptr), flush=flush)
+    plain_ms = median_ms(lambda: ref.segsum_csr_ref(vals_s, row_ptr), flush=flush)
+    lib_ms = median_ms(
+        lambda: torch.zeros((n, d), device=dev).index_add_(0, ids_d, vals_d),
+        flush=flush)
+    ms_again = median_ms(lambda: kernel.segsum_csr(vals_s, row_ptr), flush=flush)
+    bytes_moved = e * d * 4 + e * 4 + n * d * 4
+    bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    flops = e * d  # one add per value
+    by_ops = flops / 67e12 * 1e3  # f32 non-tensor peak, NVIDIA's data sheet
+    deg = np.bincount(ids, minlength=n)
+    log(f"segsum at E={e}, N={n}, D={d}, f32 (messages along the corpus's "
+        f"edges into their objects; in-degree max {int(deg.max())}, mean "
+        f"{e / n:.3f}, {int((deg == 0).sum())} empty segments): max err "
+        f"{err:.3g} (rtol = atol = {segsum_tol(np.float32)}), launches {launches}; "
+        f"op (host sort, upload, kernel) {op_s:.3f}s; kernel {ms:.4f} ms "
+        f"(again {ms_again:.4f} ms, L2 flushed), plain {plain_ms:.4f} ms, "
+        f"library index_add_ {lib_ms:.4f} ms; bound {bound_ms:.4f} ms for "
+        f"{bytes_moved} bytes (vals + ids + out) at 3.35 TB/s, "
+        f"{by_ops:.4f} ms for {flops} adds at 67 TFLOP/s")
+    del flush, vals_s, vals_d, ids_d, out
+    free_card()
+    return {"name": "segsum", **KERNELS["segsum"], "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bound_ms, by_ops),
+            "bound_by": "bytes" if bound_ms >= by_ops else "operations",
+            "library_ms": lib_ms}
 
 
 # --------------------------------------------------------------------- #
@@ -522,6 +696,12 @@ def max_allocated() -> int:
     return torch.cuda.max_memory_allocated()
 
 
+def reset_peak() -> None:
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+
+
 def plans_of(db):
     """The plans of the workload in ``db`` (name, plan), union parts apart:
     cached, or resumed onto the current snapshot."""
@@ -733,6 +913,225 @@ def phase_dense_tier(seed: int):
 
 
 # --------------------------------------------------------------------- #
+# phase 5: serving on the card
+# --------------------------------------------------------------------- #
+def serve_texts(n_universities: int, seed: int) -> list[str]:
+    """The serving template over random universities of the corpus."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 5)
+    return [SERVE_TEMPLATE.format(uni=f"Univ{u}")
+            for u in rng.integers(0, n_universities, SERVE_REQUESTS)]
+
+
+def truths(db, texts) -> dict:
+    """``{text: ResultSet}`` of a direct ``db.query`` of each text."""
+    return {t: db.query(t) for t in dict.fromkeys(texts)}
+
+
+def check_served(stage, results, texts, want) -> None:
+    """Every outcome ``ok``, on the snapshot ``want`` was taken on, with
+    survivors and bindings equal to it."""
+    import numpy as np
+
+    for r, t in zip(results, texts):
+        if not r.ok:
+            raise AssertionError(f"{stage}: outcome {r.outcome} ({r.detail})")
+        ref = want[t]
+        if r.result.snapshot is not ref.snapshot:
+            raise AssertionError(f"{stage}: served on another snapshot")
+        if not np.array_equal(r.result.survivor_mask, ref.survivor_mask) or any(
+                not np.array_equal(r.result.binding_mask(v), ref.binding_mask(v))
+                for v in ref.variables):
+            raise AssertionError(f"{stage}: {t} differs from a direct query")
+
+
+async def serve_stream(server, db, graph, texts):
+    """The ``launch/serve.py --mutate`` sequence: the requests from two
+    tenants, a delete/re-insert churn, a dictionary-growing insert and a
+    fence, then one warm wave under the profiler; each wave held against
+    direct queries at its version."""
+    import asyncio
+
+    import numpy as np
+
+    def submit(batch):
+        return asyncio.gather(*[server.submit(t, tenant=f"t{i % 2}")
+                                for i, t in enumerate(batch)])
+
+    want = truths(db, texts)
+    t0 = time.perf_counter()
+    results = await submit(texts)
+    wall = time.perf_counter() - t0
+    check_served("requests", results, texts, want)
+    totals = [r.total_ms for r in results]
+    row = graph.triples[int(np.flatnonzero(
+        graph.triples[:, 1] == graph.label_id("memberOf"))[0])]
+    churn = [tuple(n[i] for n, i in zip(
+        (graph.node_names, graph.label_names, graph.node_names), row))]
+    mid = texts[:SERVE_BATCH]
+    if db.delete(churn) != 1:
+        raise AssertionError("delete of an existing triple removed nothing")
+    want = truths(db, mid)
+    t0 = time.perf_counter()
+    check_served("after delete", await submit(mid), mid, want)
+    resume_s = time.perf_counter() - t0
+    db.insert(churn)
+    db.insert([("DeptNew", "subOrganizationOf", "Univ0"),
+               ("StudentNew", "memberOf", "DeptNew")])
+    fenced = await server.fence()
+    if fenced != db.version:
+        raise AssertionError(f"fence reached v{fenced}, not v{db.version}")
+    want = truths(db, mid)
+    t0 = time.perf_counter()
+    check_served("after fence", await submit(mid), mid, want)
+    cold_s = time.perf_counter() - t0
+    # the other replica builds its plan too; then one wave, warm on either
+    # replica, under the profiler: the card's share of serving
+    check_served("second replica", await submit(mid), mid, want)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        again = await submit(mid)
+        warm_s = time.perf_counter() - t0
+    check_served("warm", again, mid, want)
+    if not all(r.result.cache_hit for r in again):
+        raise AssertionError("the profiled wave missed the plan cache")
+    waves = (f"{len(mid)}-request waves: after the delete (resumed plan) "
+             f"{resume_s:.3f}s, after the dictionary-growing insert and the "
+             f"fence (cold plan) {cold_s:.3f}s, warm {warm_s:.3f}s; profiled "
+             f"warm wave: {trace_share(prof, warm_s)}")
+    return wall, totals, len(texts) + 4 * len(mid), waves
+
+
+async def serve_faults(server, plan, texts):
+    """A poisoned request among good ones fails alone and leaves every
+    replica healthy; then replica r0 crashes, is quarantined and rebuilt,
+    and answers bit-identically to r1.  Returns the health events."""
+    import asyncio
+
+    import numpy as np
+
+    from repro_torch.faults import InjectedPoison
+    from repro_torch.serve import HEALTHY
+
+    good = texts[0]
+    poison = SERVE_TEMPLATE.format(uni="PoisonX")
+    plan.arm()
+    got = await asyncio.gather(*[server.submit(t) for t in (good, poison, good, good)])
+    if [r.outcome for r in got] != ["ok", "error", "ok", "ok"] or not isinstance(
+            got[1].error, InjectedPoison):
+        raise AssertionError(f"poison: {[(r.outcome, r.detail) for r in got]}")
+    if any(h["state"] != HEALTHY for h in server.router.health()):
+        raise AssertionError(f"poison was blamed on a replica: {server.router.health()}")
+    plan.crash_replica("r0", at_batch=1).arm()
+    by_replica = {}
+    for _ in range(40):
+        r = await server.submit(good)
+        if not r.ok:
+            raise AssertionError(f"crash: outcome {r.outcome} ({r.detail})")
+        by_replica.setdefault(r.replica, r)
+        if any(e["replica"] == "r0" and e["event"] == "quarantined"
+               for e in server.router.events()):
+            break
+    else:
+        raise AssertionError("the crashed replica was never quarantined")
+    loop = asyncio.get_running_loop()
+    if not await loop.run_in_executor(None, server.router.wait_rebuilt, 60.0):
+        raise AssertionError(f"r0 was not rebuilt: {server.router.health()}")
+    healed = None
+    for _ in range(8):
+        r = await server.submit(good)
+        if not r.ok:
+            raise AssertionError(f"rebuilt: outcome {r.outcome} ({r.detail})")
+        by_replica.setdefault(r.replica, r)
+        if r.replica == "r0":
+            healed = r
+            break
+    if healed is None or "r1" not in by_replica:
+        raise AssertionError(f"no answer from both replicas: {sorted(by_replica)}")
+    base = by_replica["r1"].result
+    if not np.array_equal(healed.result.survivor_mask, base.survivor_mask) or any(
+            not np.array_equal(healed.result.binding_mask(v), base.binding_mask(v))
+            for v in base.variables):
+        raise AssertionError("the rebuilt replica's answer differs from r1's")
+    health = {h["name"]: h for h in server.router.health()}
+    if health["r0"]["epoch"] < 1 or health["r0"]["rebuilds"] < 1:
+        raise AssertionError(f"r0 not rebuilt: {health['r0']}")
+    return server.router.events()
+
+
+def phase_serving(graph, n_universities: int, seed: int) -> None:
+    """Phase 5: ``AsyncServer`` with two replicas over the corpus on the
+    card, launch counts zeroed just before and read just after."""
+    import asyncio
+
+    from repro_torch import kernels
+    from repro_torch.db import GraphDB
+    from repro_torch.faults import FaultPlan
+    from repro_torch.serve import AsyncServer
+
+    t_phase = time.perf_counter()
+    texts = serve_texts(n_universities, seed)
+    db = GraphDB(graph, device=CARD)
+    plan = FaultPlan(seed).poison_matching("Poison")
+    reset_peak()
+
+    async def go():
+        async with AsyncServer(
+            db, replicas=2, max_batch=SERVE_BATCH, fault_plan=plan,
+            default_deadline_ms=SERVE_DEADLINE_MS,
+        ) as server:
+            stream = await serve_stream(server, db, graph, texts)
+            snap = server.metrics.snapshot()
+            agg = server.router.aggregate()
+            events = await serve_faults(server, plan, texts)
+            return (*stream, snap, agg, events, server.metrics.snapshot())
+
+    kernels.reset_launches()
+    wall, totals, n_stream, waves, snap, agg, events, final = asyncio.run(go())
+    launches = kernels.launch_counts()
+    if not launches.get("segor_blocks"):
+        raise AssertionError(f"serving never launched segor_blocks: {launches}")
+    if agg["plans_resumed"] < 1:
+        raise AssertionError(f"serving resumed no plan: {agg}")
+    if snap.watchdog_overruns or snap.retries or snap.timeouts:
+        raise AssertionError(f"the fault-free stream overran or retried: {snap}")
+    if final.submitted != final.resolved:
+        raise AssertionError(f"unresolved requests: {final}")
+    card = card_line()
+    lat = snap.latency
+    log(f"serving ({card}): deadline {SERVE_DEADLINE_MS:.0f} ms per request, "
+        f"2 replicas, max_batch {SERVE_BATCH}; {SERVE_REQUESTS} requests in "
+        f"{wall:.3f}s = {SERVE_REQUESTS / wall:.2f} req/s, submit-to-result "
+        f"p50 {statistics.median(totals):.1f} ms, p99 "
+        f"{statistics.quantiles(totals, n=100, method='inclusive')[98]:.1f} ms, max "
+        f"{max(totals):.1f} ms; ServeMetrics over the whole fault-free stream "
+        f"({n_stream} requests, mutations included; bucket upper edges): p50 "
+        f"{lat['p50_ms']:.1f} ms, p99 {lat['p99_ms']:.1f} ms, mean "
+        f"{lat['mean_ms']:.1f} ms")
+    log(f"serving ({card}): {waves}")
+    log(f"serving outcomes ({card}): fault-free stream completed "
+        f"{snap.completed}, shed {dict(snap.shed)}, errors {snap.errors}, "
+        f"timeouts {snap.timeouts}, watchdog overruns {snap.watchdog_overruns}; "
+        f"with faults: completed {final.completed}, errors {final.errors}, "
+        f"retries {final.retries}, timeouts {final.timeouts}")
+    log(f"serving plans ({card}): engines {agg['engine_counts']}, batches per "
+        f"replica {agg['batches_per_replica']}, plans built {agg['plan_builds']}, "
+        f"resumed {agg['plans_resumed']}, cold-invalidated "
+        f"{agg['plan_invalidations']}; launches {launches}")
+    for name in ("r0", "r1"):
+        log(f"serving health events of {name} ({card}): " + ("; ".join(
+            f"{e['event']}" + (f" ({e['detail'][:60]})" if e["detail"] else "")
+            for e in events if e["replica"] == name) or "none"))
+    log(f"serving peak device memory ({card}): {max_allocated()} bytes; phase "
+        f"5 seconds: {time.perf_counter() - t_phase:.1f}")
+    del db
+    free_card()
+
+
+# --------------------------------------------------------------------- #
 # phase 4: kernels at the main path's shapes, and their times
 # --------------------------------------------------------------------- #
 def phase_kernel_times(db, runs, launches):
@@ -801,6 +1200,12 @@ def device_share(db, texts) -> str:
         db.execute_many(texts)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    return trace_share(prof, wall)
+
+
+def trace_share(prof, wall: float) -> str:
+    """Device busy time in a profiler trace (the sum of the events' own
+    device time) against the wall time it covered."""
     busy = sum(getattr(e, "self_device_time_total", 0.0)
                for e in prof.key_averages()) / 1e6
     if busy <= 0.0:
@@ -842,13 +1247,20 @@ def main() -> int:
                     log(f"  ptxas: {line.strip()}")
     log(f"phase 2: segor kernel == plain version on "
         f"{phase_kernel_cases(args.seed)} random cases")
-    log("phase 3: main path")
+    cases, err = phase_segsum_cases(args.seed)
+    log(f"phase 2b: segsum kernel == plain version on {cases} random cases "
+        f"(max err {err:.3g}), the same bits on every second launch")
     graph = load_corpus(args.universities, args.seed)
+    segsum_record = phase_segsum_full(graph, args.seed)
+    log("phase 3: main path")
     db, runs, launches = phase_main_path(graph)
     phase_cross_checks(graph, runs)
+    log("phase 5: serving")
+    phase_serving(graph, args.universities, args.seed)
     dense_records = phase_dense_tier(args.seed)
     log("phase 4: kernels at main-path shapes")
-    records = phase_kernel_times(db, runs, launches) + dense_records
+    records = (phase_kernel_times(db, runs, launches) + dense_records
+               + [segsum_record])
     log(f"total {time.perf_counter() - t_start:.1f}s")
     log(card_line())
     log(json.dumps({"kernels": records}))

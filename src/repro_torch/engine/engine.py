@@ -192,8 +192,9 @@ class Engine:
         self._adj_rebuilds_saved = 0  # guarded-by: _stats_lock
         self._engine_counts: dict[str, int] = {}  # guarded-by: _stats_lock
         self._stage_seconds: dict[str, float] = {}  # guarded-by: _stats_lock
-        # fault-injection hook for the serving layer (not ported yet); None
-        # disarms the site at the cost of one attribute read per batch
+        # fault-injection hook armed by the serving layer (a
+        # repro_torch.faults.BoundFaults); None disarms the site at the
+        # cost of one attribute read per batch
         self.faults = None
 
     # ------------------------------------------------------------------ #

@@ -22,6 +22,7 @@ PACKAGE = Path(__file__).resolve().parent.parent
 BUILD_DIR = PACKAGE.parent.parent / "build" / "kernels"
 SOURCES = {
     "segor": PACKAGE / "kernels" / "segsum" / "csrc" / "segor.cu",
+    "segsum": PACKAGE / "kernels" / "segsum" / "csrc" / "segsum.cu",
     "bitmm": PACKAGE / "kernels" / "bitmm" / "csrc" / "bitmm.cu",
 }
 NVCC_FLAGS = (

@@ -1,1 +1,2 @@
-"""Segmented OR for the edge engines: host layout, plain version, CUDA kernel."""
+"""Segmented OR for the edge engines and the segment sum: host layouts,
+plain versions, CUDA kernels, and the public ops (:mod:`.ops`)."""

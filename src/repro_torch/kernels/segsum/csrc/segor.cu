@@ -10,7 +10,9 @@
 //                                           frontier[v, src >> 5] is set
 //
 // for each of the V variables.  Pad rows carry the sentinel n_pad >= n and
-// set nothing.  Words are int32 tensors on the host side and are read here
+// set nothing.  The frontier has its own axis of n_src bits in rows of
+// nw_src words: the edge engines pass the node axis (n_src = n), the
+// segmented-OR op (ops.segor) the edge axis, one bit per edge.  Words are int32 tensors on the host side and are read here
 // as the uint32 bit patterns they hold.
 //
 // Bound: memory traffic, not arithmetic.  One launch reads G*BE*8 bytes of
@@ -45,7 +47,7 @@ __global__ void segor_blocks_kernel(const uint32_t* __restrict__ frontier,
                                     const int32_t* __restrict__ win,
                                     uint32_t* __restrict__ out,
                                     int n_vars, int nw, int block_e, int n,
-                                    int block_n) {
+                                    int block_n, int n_src, int nw_src) {
   extern __shared__ uint32_t acc[];  // [n_vars, block_n / 32]
   const int bw = block_n >> 5;
   const int g = blockIdx.x;
@@ -60,9 +62,9 @@ __global__ void segor_blocks_kernel(const uint32_t* __restrict__ frontier,
     const int src = src_g[e];
     const int local = dst - base;
     // pad rows (sentinel n_pad), ids outside the block's window, and
-    // sources past the node axis set nothing
+    // sources past the frontier's axis set nothing
     if (dst < 0 || dst >= n || local < 0 || local >= block_n || src < 0 ||
-        src >= n) {
+        src >= n_src) {
       continue;
     }
     const uint32_t* f = frontier + (src >> 5);
@@ -70,7 +72,7 @@ __global__ void segor_blocks_kernel(const uint32_t* __restrict__ frontier,
     const uint32_t bit = 1u << (dst & 31);
     uint32_t* a = acc + (local >> 5);
     for (int v = 0; v < n_vars; ++v) {
-      if ((f[static_cast<size_t>(v) * nw] >> shift) & 1u) {
+      if ((f[static_cast<size_t>(v) * nw_src] >> shift) & 1u) {
         atomicOr(a + v * bw, bit);
       }
     }
@@ -90,12 +92,13 @@ __global__ void segor_blocks_kernel(const uint32_t* __restrict__ frontier,
 }  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).  `out`
-// must hold n_vars * nw zeroed words.
+// must hold n_vars * nw zeroed words; `frontier` holds n_vars rows of
+// nw_src words.
 extern "C" int segor_blocks_launch(const void* frontier, const void* src_b,
                                    const void* dst_b, const void* win,
                                    void* out, int n_vars, int nw, int n_blocks,
-                                   int block_e, int n, int block_n,
-                                   void* stream) {
+                                   int block_e, int n, int block_n, int n_src,
+                                   int nw_src, void* stream) {
   const size_t smem =
       static_cast<size_t>(n_vars) * (block_n / 32) * sizeof(uint32_t);
   if (smem > 48 * 1024) {
@@ -110,7 +113,7 @@ extern "C" int segor_blocks_launch(const void* frontier, const void* src_b,
         static_cast<const uint32_t*>(frontier),
         static_cast<const int32_t*>(src_b), static_cast<const int32_t*>(dst_b),
         static_cast<const int32_t*>(win), static_cast<uint32_t*>(out), n_vars,
-        nw, block_e, n, block_n);
+        nw, block_e, n, block_n, n_src, nw_src);
   }
   return static_cast<int>(cudaGetLastError());
 }

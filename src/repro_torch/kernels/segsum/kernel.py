@@ -1,12 +1,14 @@
-"""Segmented OR over destination-blocked edges: host layout and kernel wrapper.
+"""Segmented OR and segment sum: host layouts and kernel wrappers.
 
 :func:`prepare_segor` builds the blocked layout the edge engines carry
 (byte-identical to the JAX package's, so patched operands keep their
 shapes under churn); :func:`segor_blocks` is the wrapper of the CUDA kernel
 in ``csrc/segor.cu``, which fuses the frontier-bit gather into the
-segmented OR and emits packed ``int32`` words.  For a tensor on the CPU the
-wrapper runs the plain version (:func:`repro_torch.kernels.segsum.ref.
-segor_blocks_ref`); for a CUDA tensor it launches the kernel or raises.
+segmented OR and emits packed ``int32`` words.  :func:`prepare_csr` sorts a
+segment sum's rows by segment id and :func:`segsum_csr` wraps the CUDA
+kernel in ``csrc/segsum.cu`` that sums each segment's rows.  For tensors on
+the CPU a wrapper runs the plain version (:mod:`repro_torch.kernels.segsum.
+ref`); for CUDA tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -89,12 +91,12 @@ def prepare_segor(
 @functools.cache
 def _launcher():
     fn = _build.load("segor").segor_blocks_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check(frontier_p, seg_src_b, seg_dst_b, seg_win, num_segments, block_n):
+def _check(frontier_p, seg_src_b, seg_dst_b, seg_win, num_sources, block_n):
     tensors = (frontier_p, seg_src_b, seg_dst_b, seg_win)
     if any(t.dtype != torch.int32 for t in tensors):
         raise TypeError("segor_blocks takes int32 tensors")
@@ -105,10 +107,10 @@ def _check(frontier_p, seg_src_b, seg_dst_b, seg_win, num_segments, block_n):
     if block_n <= 0 or block_n % 32:
         raise ValueError("block_n must be a positive multiple of 32")
     if frontier_p.dim() != 2 or frontier_p.shape[1] != bitops.packed_width(
-        num_segments
+        num_sources
     ):
         raise ValueError(
-            f"frontier must be [V, {bitops.packed_width(num_segments)}], "
+            f"frontier must be [V, {bitops.packed_width(num_sources)}], "
             f"got {tuple(frontier_p.shape)}"
         )
     if seg_src_b.dim() != 2 or seg_src_b.shape != seg_dst_b.shape:
@@ -125,15 +127,19 @@ def segor_blocks(
     *,
     num_segments: int,
     block_n: int = 256,
+    num_sources: int | None = None,
 ) -> torch.Tensor:
     """Fused frontier gather + segmented OR -> packed ``int32 [V, nw]``.
 
     Computes the JAX package's ``segor_blocks(_edge_bits(frontier,
-    src_b).transpose(1, 2, 0), dst_b, win)`` bit for bit.  A CPU tensor
-    takes the plain version; a CUDA tensor launches the kernel on the
-    current stream (no synchronisation) or raises.
+    src_b).transpose(1, 2, 0), dst_b, win)`` bit for bit.  The frontier
+    holds ``num_sources`` bits per variable (default ``num_segments``: the
+    edge engines' square node axis).  A CPU tensor takes the plain version;
+    a CUDA tensor launches the kernel on the current stream (no
+    synchronisation) or raises.
     """
-    _check(frontier_p, seg_src_b, seg_dst_b, seg_win, num_segments, block_n)
+    n_src = num_segments if num_sources is None else num_sources
+    _check(frontier_p, seg_src_b, seg_dst_b, seg_win, n_src, block_n)
     dev = frontier_p.device
     if dev.type == "cpu":
         return _ref.segor_blocks_ref(
@@ -142,7 +148,8 @@ def segor_blocks(
         )
     if dev.type != "cuda":
         raise ValueError(f"segor_blocks runs on cuda or cpu, not {dev}")
-    v, nw = frontier_p.shape
+    v = frontier_p.shape[0]
+    nw = bitops.packed_width(num_segments)
     g, be = seg_src_b.shape
     smem = v * (block_n // 32) * 4
     if smem > SMEM_LIMIT:
@@ -158,10 +165,94 @@ def segor_blocks(
         err = fn(
             frontier_p.data_ptr(), seg_src_b.data_ptr(), seg_dst_b.data_ptr(),
             seg_win.data_ptr(), out.data_ptr(),
-            v, nw, g, be, num_segments, block_n,
+            v, nw, g, be, num_segments, block_n, n_src, frontier_p.shape[1],
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"segor_blocks launch failed: CUDA error {err}")
     count_launch("segor_blocks")
+    return out
+
+
+def prepare_csr(
+    seg_ids: np.ndarray, num_segments: int
+) -> tuple[np.ndarray, np.ndarray]:
+    """Host layout of the segment sum: ``(order, row_ptr)``.
+
+    ``order`` lists the rows whose id lies in ``[0, num_segments)``, sorted
+    by id (stable: a segment's rows keep their input order); rows with any
+    other id belong to no segment and are dropped (the JAX package's
+    ``segsum`` drops ids past the last segment the same way).
+    ``row_ptr [num_segments + 1]`` (int32) gives
+    segment ``s`` the sorted rows ``row_ptr[s]:row_ptr[s + 1]``.
+    """
+    seg_ids = np.asarray(seg_ids)
+    if seg_ids.ndim != 1:
+        raise ValueError("seg_ids must be one-dimensional")
+    keep = np.flatnonzero((seg_ids >= 0) & (seg_ids < num_segments))
+    if len(keep) > np.iinfo(np.int32).max:
+        raise ValueError("segsum takes fewer than 2**31 rows")
+    order = keep[np.argsort(seg_ids[keep], kind="stable")]
+    counts = np.bincount(seg_ids[keep], minlength=num_segments)
+    row_ptr = np.zeros(num_segments + 1, np.int32)
+    np.cumsum(counts, out=row_ptr[1:])
+    return order, row_ptr
+
+
+@functools.cache
+def _segsum_launcher():
+    fn = _build.load("segsum").segsum_csr_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+# columns per grid row of the kernel (csrc/segsum.cu kTileD), and the most
+# grid rows CUDA allows
+_SEGSUM_TILE_D, _MAX_GRID_Y = 128, 65_535
+
+
+def segsum_csr(vals_s: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
+    """Segment sum over rows sorted by segment -> ``[N, D]``, ``N =
+    row_ptr.numel() - 1``: row ``s`` sums ``vals_s[row_ptr[s]:row_ptr[s+1]]``
+    in order.
+
+    ``vals_s [E, D]`` f32 or f64 (any other dtype raises ``TypeError``),
+    ``row_ptr`` int32, non-decreasing from 0 to ``E`` (as
+    :func:`prepare_csr` builds it).  A CPU tensor takes the plain version
+    (:func:`repro_torch.kernels.segsum.ref.segsum_csr_ref`); a CUDA tensor
+    launches the kernel on the current stream (no synchronisation) or
+    raises.
+    """
+    if vals_s.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"segsum takes float32 or float64 values, not {vals_s.dtype}")
+    if row_ptr.dtype != torch.int32:
+        raise TypeError("segsum takes int32 row pointers")
+    if vals_s.dim() != 2 or row_ptr.dim() != 1 or row_ptr.numel() < 1:
+        raise ValueError("segsum takes vals [E, D] and row_ptr [N + 1]")
+    if row_ptr.device != vals_s.device:
+        raise ValueError("segsum operands must share one device")
+    if not (vals_s.is_contiguous() and row_ptr.is_contiguous()):
+        raise ValueError("segsum operands must be contiguous")
+    dev = vals_s.device
+    if dev.type == "cpu":
+        return _ref.segsum_csr_ref(vals_s, row_ptr)
+    if dev.type != "cuda":
+        raise ValueError(f"segsum runs on cuda or cpu, not {dev}")
+    n, d = row_ptr.numel() - 1, vals_s.shape[1]
+    if -(-d // _SEGSUM_TILE_D) > _MAX_GRID_Y:
+        raise ValueError(f"segsum takes at most {_SEGSUM_TILE_D * _MAX_GRID_Y} columns")
+    out = torch.empty((n, d), dtype=vals_s.dtype, device=dev)
+    if n == 0 or d == 0:
+        return out
+    fn = _segsum_launcher()
+    with torch.cuda.device(dev):
+        err = fn(
+            vals_s.data_ptr(), row_ptr.data_ptr(), out.data_ptr(), n, d,
+            int(vals_s.dtype == torch.float64),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"segsum launch failed: CUDA error {err}")
+    count_launch("segsum")
     return out

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the segmented OR.
+"""Plain PyTorch versions of the segmented OR and the segment sum.
 
 * :func:`edge_bits` — per-edge source bits gathered out of packed frontier
   words (the ``_edge_bits`` gather of the edge engines).
@@ -8,6 +8,10 @@
   (``csrc/segor.cu``) over the blocked layout of ``prepare_segor``: what
   the kernel's wrapper runs for a tensor on the CPU, and what the kernel is
   held against on the card.
+* :func:`segsum_ref` — the segment sum by ``index_add_``, and
+  :func:`segsum_csr_ref`, the same over the sorted layout of the CUDA
+  segment-sum kernel (``csrc/segsum.cu``): what its wrapper runs for a
+  tensor on the CPU.
 
 Words are ``int32`` bit-views of the reference's ``uint32``; ``int32 >>``
 is arithmetic, so every extracted bit is masked with ``& 1``.
@@ -68,6 +72,8 @@ def segor_blocks_ref(
     dst_b, win)`` of the JAX package bit for bit: an edge counts only if its
     destination lies below ``num_segments`` and inside its block's window.
     """
+    if frontier_p.shape[1] == 0:  # no sources: every edge is a pad row
+        frontier_p = frontier_p.new_zeros((frontier_p.shape[0], 1))
     be = seg_src_b.shape[1]
     src = seg_src_b.reshape(-1).to(torch.int64)
     dst = seg_dst_b.reshape(-1).to(torch.int64)
@@ -76,3 +82,27 @@ def segor_blocks_ref(
     src = torch.where(live, src, 0)
     dst = torch.where(live, dst, num_segments)
     return segor_words(edge_bits(frontier_p, src), dst, num_segments)
+
+
+def segsum_ref(
+    vals: torch.Tensor, seg_ids: torch.Tensor, num_segments: int
+) -> torch.Tensor:
+    """``[num_segments, D]``: ``out[s] = sum of vals[i] over seg_ids[i] == s``.
+
+    ``vals [E, D]`` float, ``seg_ids [E]`` integer ids in
+    ``[0, num_segments)`` in any order.
+    """
+    out = torch.zeros(
+        (num_segments, *vals.shape[1:]), dtype=vals.dtype, device=vals.device
+    )
+    return out.index_add_(0, seg_ids.to(torch.int64), vals)
+
+
+def segsum_csr_ref(vals_s: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
+    """:func:`segsum_ref` over rows sorted by segment: segment ``s`` owns
+    rows ``row_ptr[s]:row_ptr[s + 1]`` of ``vals_s``."""
+    n = row_ptr.numel() - 1
+    ids = torch.repeat_interleave(
+        torch.arange(n, device=row_ptr.device), (row_ptr[1:] - row_ptr[:-1]).long()
+    )
+    return segsum_ref(vals_s, ids, n)

@@ -1,12 +1,14 @@
 """Card-only tests of the port (marker ``gpu``): the CUDA kernels (the
-segmented OR and the two packed boolean products) against their plain
-PyTorch versions, and the query path on the card against the same path on
-the CPU.  A CUDA kernel has no CPU mode, so without a card
+segmented OR, the two packed boolean products and the segment sum) against
+their plain PyTorch versions, the query path on the card against the same
+path on the CPU, and a two-replica ``AsyncServer`` on the card.  A CUDA
+kernel has no CPU mode, so without a card
 these skip.  The file imports neither JAX nor the JAX package, so it runs
 where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 """
+import asyncio
 import dataclasses
 
 import numpy as np
@@ -19,7 +21,8 @@ from repro_torch.data import synth
 from repro_torch.db import GraphDB
 from repro_torch.kernels.bitmm import kernel as bitmm_kernel
 from repro_torch.kernels.bitmm import ref as bitmm_ref
-from repro_torch.kernels.segsum import kernel, ref
+from repro_torch.kernels.segsum import kernel, ops, ref
+from repro_torch.serve import AsyncServer
 
 pytestmark = pytest.mark.gpu
 
@@ -203,3 +206,66 @@ def test_dense_tier_query_path_on_card_matches_cpu(cuda_device, engine):
     for a, b in zip(card.execute_many(queries), cpu.execute_many(queries)):
         assert np.array_equal(a.survivor_mask, b.survivor_mask)
         assert a.sweeps == b.sweeps and a.engine == b.engine == engine
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-5), (np.float64, 1e-12)])
+@pytest.mark.parametrize("e,n,d", [(100, 64, 8), (37, 513, 3), (5000, 100, 70),
+                                   (4000, 700, 128), (3000, 50, 200)])
+def test_segsum_kernel_matches_plain_version(cuda_device, e, n, d, dtype, tol):
+    rng = np.random.default_rng(e + n + d)
+    vals = rng.normal(size=(e, d)).astype(dtype)
+    ids = rng.integers(0, n, e).astype(np.int32)
+    kernels.reset_launches()
+    got = ops.segsum(vals, ids, n)
+    assert kernels.LAUNCHES["segsum"] == 1
+    want = ref.segsum_ref(torch.as_tensor(vals, device=cuda_device),
+                          torch.as_tensor(ids, device=cuda_device), n)
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    assert torch.equal(got, ops.segsum(vals, ids, n))  # same bits every launch
+
+
+def test_segsum_kernel_edge_cases(cuda_device):
+    out = ops.segsum(np.zeros((0, 4), np.float32), np.zeros(0, np.int32), 8)
+    assert out.shape == (8, 4) and not out.any()
+    assert ops.segsum(np.ones((3, 2), np.float32), np.zeros(3, np.int32), 0).shape == (0, 2)
+    out = ops.segsum(np.ones((16, 4), np.float32), np.zeros(16, np.int32), 1)
+    assert torch.equal(out.cpu(), torch.full((1, 4), 16.0))
+    with pytest.raises(TypeError):
+        ops.segsum(np.ones((4, 2), np.float16), np.zeros(4, np.int32), 2)
+
+
+def test_segor_op_on_card_matches_cpu(cuda_device):
+    rng = np.random.default_rng(4)
+    bits = (rng.random((9, 4000)) < 0.3).astype(np.int8)
+    ids = rng.integers(0, 1000, 4000).astype(np.int32)
+    kernels.reset_launches()
+    got = ops.segor(bits, ids, 1000)
+    assert kernels.LAUNCHES["segor_blocks"] == 1
+    assert torch.equal(got.cpu(), ops.segor(bits, ids, 1000, device="cpu"))
+
+
+def test_async_server_two_replicas_on_card(cuda_device):
+    db = GraphDB(synth.lubm_like(4, seed=0))
+    texts = ["{ ?d subOrganizationOf Univ%d . ?s memberOf ?d }" % (i % 4)
+             for i in range(16)]
+
+    async def go():
+        async with AsyncServer(db, replicas=2, max_batch=4,
+                               default_deadline_ms=60_000.0) as server:
+            first = await asyncio.gather(*[server.submit(t) for t in texts])
+            db.insert([("DeptNew", "subOrganizationOf", "Univ0"),
+                       ("StudentNew", "memberOf", "DeptNew")])
+            await server.fence()
+            return first, await asyncio.gather(*[server.submit(t) for t in texts])
+
+    kernels.reset_launches()
+    first, second = asyncio.run(go())
+    assert kernels.LAUNCHES["segor_blocks"] > 0
+    cpu = GraphDB(synth.lubm_like(4, seed=0), device="cpu")
+    for wave in (first, second):
+        want = cpu.execute_many(texts)
+        for r, w in zip(wave, want):
+            assert r.ok, (r.outcome, r.detail)
+            assert np.array_equal(r.result.survivor_mask, w.survivor_mask)
+        cpu.insert([("DeptNew", "subOrganizationOf", "Univ0"),
+                    ("StudentNew", "memberOf", "DeptNew")])
