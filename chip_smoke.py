@@ -38,7 +38,8 @@ failure fatal:
    bit-identically to the healthy one.  The launch counts are zeroed just
    before and read just after;
 3b. the dense-adjacency tier: the packed products against their plain
-   versions on random cases; the same workload, mutation included, on the
+   versions on random cases and at the contraction split's boundaries
+   (each with its grid logged); the same workload, mutation included, on the
    largest LUBM corpus inside the dense tier (280 universities, 46,200
    nodes) through ``engine="packed_fused"`` and ``engine="packed"``, each
    with the launch counts zeroed just before and read just after, held
@@ -49,7 +50,11 @@ failure fatal:
    ``packed_fused`` on a 16,384-node, 8M-edge random graph, checked
    against ``dense``, ``packed`` and ``sparse``; and the two kernels'
    times beside their bound, their plain versions and the dense engine's
-   unpacked matrix product;
+   unpacked matrix product in f32 and bf16 (the faster is ``library_ms``),
+   with their grid, registers and spills, the device time of each CUDA
+   kernel a call launches, the host time to enqueue one call, and both
+   again at a word count that is not a multiple of 4 (rows staged a word
+   at a time);
 4. the segmented-OR kernel against its plain version at the main path's
    own shapes, and its time (CUDA events, median of 25 launches) beside
    its bound.
@@ -605,10 +610,47 @@ def check_bitmm(chi_p, a_p, flags) -> tuple[int, int]:
     return errs
 
 
+def split_boundary_shapes(v: int = 48) -> list[tuple[int, int, str]]:
+    """(V, n, what) at the products' split boundaries on this card's grid:
+    n one row below, at and above a multiple of a contraction slice's rows
+    (a slice of more than one word), a column count that is not a multiple
+    of the column tile, more slices asked for than contraction words, more
+    variables than one block's group, and V past 384 (the update kernel's
+    ~y past 48 KB of shared memory) up to the largest V taken."""
+    import torch
+
+    from repro_torch.kernels.bitmm import kernel
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out, seen = [], set()
+    for n in range(1_000, 40_000):
+        g = kernel.geometry(v, -(-n // 32), sms)
+        rows = g.slice_words * 32
+        where = {rows - 1: "below", 0: "at", 1: "above"}.get(n % rows)
+        if g.slice_words > 1 and where and where not in seen:
+            seen.add(where)
+            out.append((v, n, f"n {where} a multiple of a slice's {rows} rows"))
+        if len(seen) == 3:
+            break
+    tile, group = kernel.TILE, kernel.GROUP
+    return out + [
+        (v, 4200, f"nw = 132 against a {tile}-word column tile"),
+        (v, 4099, f"nw = 129 against a {tile}-word column tile"),
+        (v, 100, f"{kernel.geometry(v, 4, sms).slices} slices of 4 "
+                 f"contraction words, {kernel.BLOCKS_PER_SM * sms} blocks "
+                 f"asked for"),
+        (group + 1, 1000, f"V = {group + 1}: two variable groups"),
+        (2 * group + 2, 4099, f"V = {2 * group + 2}: three variable groups"),
+    ] + [(big, n, f"V = {big}: ~y {big * kernel.UPDATE_BYTES_PER_VAR} bytes "
+                  f"of shared memory, {-(-big // group)} variable groups")
+         for big in (385, 1760, kernel.MAX_VARS) for n in (100, 4099)]
+
+
 def bitmm_random_cases(seed: int) -> int:
     import numpy as np
     import torch
 
+    from repro_torch.core import bitops
     from repro_torch.kernels.bitmm import kernel
 
     rng = np.random.default_rng(seed + 1)
@@ -617,11 +659,37 @@ def bitmm_random_cases(seed: int) -> int:
         for n in (1, 7, 31, 32, 33, 100, 1000, 4099):
             check_bitmm(*bitmm_case(rng, v, n))
             cases += 1
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for v, n, what in split_boundary_shapes():
+        g = kernel.geometry(v, -(-n // 32), sms)
+        check_bitmm(*bitmm_case(rng, v, n))
+        log(f"  split boundary V={v}, n={n} ({what}): {g.blocks} blocks = "
+            f"{g.col_tiles} column tiles x {g.slices} slices of "
+            f"{g.slice_words} words x {g.var_groups} variable groups, equal")
+        cases += 1
     for density in (0.0, 0.01, 0.5, 1.0):
         check_bitmm(*bitmm_case(rng, 9, 777, density=density))
         cases += 1
     chi_p, a_p, f = bitmm_case(rng, 12, 500, chi_density=0.0)  # empty frontier
     check_bitmm(chi_p, a_p, f)
+    # every frontier bit set with a full adjacency: nothing moves
+    chi_p, a_p, f = bitmm_case(rng, 48, 4099, density=1.0, chi_density=1.0,
+                               flags=1.0)
+    check_bitmm(chi_p, a_p, f)
+    new, ch = kernel.bitmm_apply(chi_p, a_p, f)
+    if not torch.equal(new, chi_p) or int(ch) != 0:
+        raise AssertionError("a full frontier over a full adjacency moved chi")
+    full = kernel.bitmm_packed(bitops.unpack(chi_p, 4099), a_p)
+    if not bool(bitops.unpack(full, 4099).all()):
+        raise AssertionError("a full frontier over a full adjacency missed bits")
+    # two launches give the same words and changed word
+    chi_p, a_p, f = bitmm_case(rng, 48, 4288)
+    first, second = (kernel.bitmm_apply(chi_p, a_p, f) for _ in range(2))
+    x = bitops.unpack(chi_p, 4288)
+    if not (torch.equal(first[0], second[0]) and int(first[1]) == int(second[1])
+            and torch.equal(kernel.bitmm_packed(x, a_p),
+                            kernel.bitmm_packed(x, a_p))):
+        raise AssertionError("two launches gave different bits")
     chi_p, a_p, f = bitmm_case(rng, 12, 500)
     new, ch = kernel.bitmm_apply(chi_p, a_p, torch.zeros_like(f))
     if not torch.equal(new, chi_p) or int(ch) != 0:
@@ -636,16 +704,21 @@ def bitmm_random_cases(seed: int) -> int:
         chi_p = new
     else:
         raise AssertionError("the fused step never converged")
-    cases += 4
-    chi_p, a_p, _ = bitmm_case(rng, 1761, 64)
-    try:
-        kernel.bitmm_apply(chi_p, a_p, torch.zeros((1761, 1761),
-                                                   dtype=torch.int32,
-                                                   device=CARD))
-    except ValueError:
-        pass  # V past the shared-memory limit is refused, never launched
-    else:
-        raise AssertionError("bitmm accepted V past the shared-memory limit")
+    cases += 6
+    too_many = kernel.MAX_VARS + 1
+    chi_p, a_p, _ = bitmm_case(rng, too_many, 64)
+    for call in (
+        lambda: kernel.bitmm_apply(chi_p, a_p, torch.zeros(
+            (too_many, too_many), dtype=torch.int32, device=CARD)),
+        lambda: kernel.bitmm_packed(bitops.unpack(chi_p, 64), a_p),
+    ):
+        try:
+            call()
+        except ValueError:
+            pass  # V past the shared-memory limit is refused, never launched
+        else:
+            raise AssertionError(f"bitmm accepted V={too_many}, past the "
+                                 f"shared-memory limit")
     return cases
 
 
@@ -717,12 +790,77 @@ def plans_of(db):
     return out
 
 
+def ptxas_report(source: str) -> dict[str, str]:
+    """Registers and spills of each kernel in the build log of ``source``
+    (``nvcc -Xptxas -v``), by mangled kernel name."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    report = _build.library_path(source).with_suffix(".log")
+    out, fn = {}, None
+    for line in report.read_text().splitlines() if report.exists() else []:
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+        elif fn and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                                    r"spill loads", line)):
+            out[fn] = f"spills {m.group(1)}/{m.group(2)} bytes stored/loaded"
+        elif fn and (m := re.search(r"Used (\d+) registers", line)):
+            out[fn] = f"{m.group(1)} registers, {out.get(fn, 'spills ?')}"
+    return out
+
+
+def bitmm_build_line(others: tuple[str, ...]) -> str:
+    """The ptxas lines of the product and of the other CUDA kernels a
+    wrapper launches."""
+    report = ptxas_report("bitmm")
+    return "; ".join(f"{key}: {line}" for key in ("product_kernel", *others)
+                     for name, line in report.items()
+                     if key in name) or "no ptxas report"
+
+
+def device_times(fn, reps: int = 10, tries: int = 3) -> dict[str, float]:
+    """Device milliseconds per call of each CUDA kernel (and fill) that
+    ``fn`` launches, by name, from a profiler trace of ``reps`` calls (L2
+    not flushed); a trace that comes back without device time is taken
+    again, up to ``tries`` times, and then the result is empty."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times = {e.key: e.self_device_time_total / reps / 1e3
+                 for e in prof.key_averages()
+                 if getattr(e, "self_device_time_total", 0.0) > 0}
+        if times:
+            return times
+    return {}
+
+
+def product_device_ms(fn) -> str:
+    """The product kernel's device time per call of ``fn``."""
+    got = [ms for key, ms in device_times(fn).items() if "product_kernel" in key]
+    return f"{got[0]:.4f} ms" if got else "not measured"
+
+
 def time_bitmm(plan, clock_hz: float) -> tuple[dict, dict]:
     """Both kernels at the largest main-path shape, on the plan's first
     operator and its init chi (the work depends on the rows and bits the
-    frontier selects, the same for every operator), their plain versions,
-    the dense engine's unpacked f32 product on the same inputs, and their
-    bound; returns the two records' numbers."""
+    frontier selects, the same for every operator): their grid, registers
+    and spills, the device time of each CUDA kernel a call launches, the
+    host time to enqueue one call, their plain versions, the dense
+    engine's unpacked product in f32 and in bf16 on the same inputs, and
+    their bound.  Then both again on the same operator and chi padded by
+    empty columns to a word count that is not a multiple of 4, where A's
+    rows are not 16-byte aligned and are staged a word at a time: the same
+    rows and bits, checked against the unpadded result.  Returns the two
+    records' numbers."""
     import torch
 
     from repro_torch.core import bitops
@@ -740,13 +878,20 @@ def time_bitmm(plan, clock_hz: float) -> tuple[dict, dict]:
     a = ops.adj_packed[m]
     flags = ops.mat_lhs_flags[m]
     rate_ops = SMS * INT32_LANES_PER_SM * clock_hz
+    g = kernel.geometry(v, nw, torch.cuda.get_device_properties(0)
+                        .multi_processor_count)
+    calls = {
+        "bitmm_apply_packed": (lambda: kernel.bitmm_apply(chi_p, a, flags),
+                               ("update_kernel",)),
+        "bitmm_packed": (lambda: kernel.bitmm_packed(x, a), ("pack_kernel",)),
+    }
     out = {}
-    for name, fn, plain, extra in (
-        ("bitmm_apply_packed", lambda: kernel.bitmm_apply(chi_p, a, flags),
-         lambda: ref.bitmm_apply_ref(chi_p, a, flags), 2 * v * nw * 4 + v * v * 4),
-        ("bitmm_packed", lambda: kernel.bitmm_packed(x, a),
-         lambda: ref.bitmm_packed_ref(x, a), v * n + v * nw * 4),
+    for name, plain, extra in (
+        ("bitmm_apply_packed", lambda: ref.bitmm_apply_ref(chi_p, a, flags),
+         2 * v * nw * 4 + v * v * 4),
+        ("bitmm_packed", lambda: ref.bitmm_packed_ref(x, a), v * n + v * nw * 4),
     ):
+        fn, others = calls[name]
         ms = median_ms(fn, flush=flush)
         plain_ms = median_ms(plain, flush=flush)
         ms_again = median_ms(fn, flush=flush)
@@ -766,18 +911,70 @@ def time_bitmm(plan, clock_hz: float) -> tuple[dict, dict]:
             f"{INT32_LANES_PER_SM} int32 lanes x {clock_hz / 1e6:.0f} MHz); "
             f"every row and bit: {full_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
             f"bytes, {full_ops / rate_ops * 1e3:.4f} ms for {full_ops} ops")
+        log(f"  grid: {g.blocks} blocks = {g.col_tiles} column tiles x "
+            f"{g.slices} slices of {g.slice_words} words x {g.var_groups} "
+            f"variable groups, {kernel.WARPS} consumer warps and a producer "
+            f"each, {kernel.WORDS_PER_LANE} column words a lane; ptxas: "
+            f"{bitmm_build_line(others)}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            fn()
+        enqueue_ms = (time.perf_counter() - t0) / 50 * 1e3
+        torch.cuda.synchronize()
+        log(f"  host time to enqueue one call (wrapper, checks, launches; "
+            f"mean of 50 without a synchronise): {enqueue_ms:.4f} ms")
+        split = device_times(fn)
+        log("  device time per call: " + ("; ".join(
+            f"{key[:60]} {ms:.4f} ms" for key, ms in split.items())
+            or "not measured (the trace shows no device time)")
+            + f"; sum {sum(split.values()):.4f} ms")
         out[name] = dict(ms=ms, plain_ms=plain_ms,
                          bound_ms=max(by_bytes, by_ops),
                          bound_by="bytes" if by_bytes >= by_ops else "operations")
-    del flush
-    # the dense engine's own product on unpacked 0/1 f32 at the same V, n
-    dense = bitops.unpack(a, n).to(torch.float32)
-    xf = x.to(torch.float32)
-    lib_ms = median_ms(lambda: torch.matmul(xf, dense))
-    log(f"library_ms (unpacked product): torch.matmul of f32 [{v}, {n}] @ "
-        f"[{n}, {n}] {lib_ms:.4f} ms")
-    del dense, xf
-    free_card()
+
+    # the same rows and bits with nw not a multiple of 4
+    nw2 = nw + (1 if (nw + 1) % 4 else 2)
+    n2 = 32 * (nw2 - 1) + 1
+    a2 = torch.zeros((n2, nw2), dtype=torch.int32, device=CARD)
+    a2[:n, :nw] = a
+    chi2 = torch.zeros((v, nw2), dtype=torch.int32, device=CARD)
+    chi2[:, :nw] = chi_p
+    x2 = bitops.unpack(chi2, n2)
+    new, ch = kernel.bitmm_apply(chi_p, a, flags)
+    new2, ch2 = kernel.bitmm_apply(chi2, a2, flags)
+    got, got2 = kernel.bitmm_packed(x, a), kernel.bitmm_packed(x2, a2)
+    if not (torch.equal(new2[:, :nw], new) and not new2[:, nw:].any()
+            and int(ch2) == int(ch) and torch.equal(got2[:, :nw], got)
+            and not got2[:, nw:].any()):
+        raise AssertionError(f"bitmm at nw = {nw2} != the same work at nw = {nw}")
+    for name, fn, fn2 in (
+        ("bitmm_apply_packed", calls["bitmm_apply_packed"][0],
+         lambda: kernel.bitmm_apply(chi2, a2, flags)),
+        ("bitmm_packed", calls["bitmm_packed"][0],
+         lambda: kernel.bitmm_packed(x2, a2)),
+    ):
+        log(f"{name} staging: nw = {nw} (a bulk copy a row) "
+            f"{median_ms(fn, flush=flush):.4f} ms, product kernel "
+            f"{product_device_ms(fn)} on the device; nw = {nw2}, n = {n2} "
+            f"(the same rows and bits, a cp.async a word) "
+            f"{median_ms(fn2, flush=flush):.4f} ms, product kernel "
+            f"{product_device_ms(fn2)}; equal bits")
+    del flush, a2, chi2, x2
+    # the dense engine's own product on unpacked 0/1 rows at the same V, n:
+    # f32 (as solve_dense runs it) and bf16 (exact in the > 0 sense: a
+    # positive integer never rounds to 0); library_ms is the faster
+    lib = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dense = bitops.unpack(a, n).to(dtype)
+        xd = x.to(dtype)
+        lib[dtype] = median_ms(lambda: torch.matmul(xd, dense))
+        del dense, xd
+        free_card()
+    lib_ms = min(lib.values())
+    log(f"library_ms (unpacked product): torch.matmul of [{v}, {n}] @ "
+        f"[{n}, {n}]: f32 {lib[torch.float32]:.4f} ms, bf16 "
+        f"{lib[torch.bfloat16]:.4f} ms; the faster {lib_ms:.4f} ms")
     for rec in out.values():
         rec["library_ms"] = lib_ms
     return out["bitmm_apply_packed"], out["bitmm_packed"]

@@ -6,12 +6,15 @@
 runs the plain version (:mod:`repro_torch.kernels.bitmm.ref`); for CUDA
 tensors it launches the kernel on the current stream, without
 synchronising, or raises.  Adjacency is square: ``a_packed int32 [n, nw]``
-with ``nw = ceil(n / 32)``.
+with ``nw = ceil(n / 32)``.  :func:`geometry` picks the products' grid:
+column tiles times contraction slices times variable groups, with enough
+slices to put :data:`BLOCKS_PER_SM` blocks on every SM of the card.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -22,35 +25,95 @@ from . import ref as _ref
 
 # dynamic shared memory one block may use on Hopper (227 KB)
 SMEM_LIMIT = 232_448
-MAX_WARPS = 16
+# streaming multiprocessors of an H100 SXM, geometry's default; the
+# wrappers pass the card's own count
+SMS = 132
+# The product's tiling, chosen on the card (PERF.md §6) and fixed in
+# csrc/bitmm.cu: each lane holds WORDS_PER_LANE column words (a block's
+# column tile is TILE words), WARPS consumer warps hold VARS_PER_WARP
+# variables' accumulators each (a block's variable group is GROUP), and the
+# contraction is split for BLOCKS_PER_SM blocks on every SM.
+WORDS_PER_LANE = 4
+TILE = 32 * WORDS_PER_LANE
+WARPS = 8
+VARS_PER_WARP = 8
+GROUP = WARPS * VARS_PER_WARP
+BLOCKS_PER_SM = 2
+# the product's contraction words per block at most, which bounds its
+# shared copy of the frontier words
+MAX_SLICE_WORDS = 128
+# the update's shared memory per variable: ~y over 32 column words
+UPDATE_BYTES_PER_VAR = 32 * 4
+# the largest V the products take (1,816)
+MAX_VARS = SMEM_LIMIT // UPDATE_BYTES_PER_VAR
+
+
+class Geometry(NamedTuple):
+    """One launch's grid: ``col_tiles × slices × var_groups`` blocks; block
+    ``(x, y, z)`` owns column words ``[x * TILE, (x + 1) * TILE)``,
+    contraction words ``[y * slice_words, (y + 1) * slice_words)`` and
+    variables ``[z * GROUP, (z + 1) * GROUP)``."""
+
+    col_tiles: int
+    slices: int
+    slice_words: int
+    var_groups: int
+
+    @property
+    def blocks(self) -> int:
+        return self.col_tiles * self.slices * self.var_groups
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=256)
+def geometry(n_vars: int, nw: int, sms: int = SMS) -> Geometry:
+    """The grid of both products for ``V = n_vars`` over ``nw`` words
+    (square adjacency: ``nw`` column and contraction words) on a card of
+    ``sms`` SMs.
+
+    The contraction is cut into equal slices: as many as give
+    :data:`BLOCKS_PER_SM` blocks per SM (fewer where equal slices cannot
+    reach that count exactly, never more: past a multiple of the SM count,
+    a few more blocks would run as one more wave), at least as many as
+    keep a slice within :data:`MAX_SLICE_WORDS`, never more than
+    contraction words, and never an empty one.  Raises ``ValueError`` for
+    a V whose update stage (``[V, 32]`` words of ~y) passes the shared
+    memory a Hopper block may use: past :data:`MAX_VARS`.
+    """
+    update_smem = n_vars * UPDATE_BYTES_PER_VAR
+    if update_smem > SMEM_LIMIT:
+        raise ValueError(
+            f"V={n_vars} needs {update_smem} bytes of shared memory per block, "
+            f"past the {SMEM_LIMIT} a Hopper block may use"
+        )
+    col_tiles = _cdiv(nw, TILE)
+    var_groups = _cdiv(n_vars, GROUP)
+    want = _cdiv(BLOCKS_PER_SM * sms, max(1, col_tiles * var_groups))
+    slices = max(1, min(nw, max(want, _cdiv(nw, MAX_SLICE_WORDS))))
+    slice_words = max(1, _cdiv(nw, slices))
+    return Geometry(col_tiles, _cdiv(nw, slice_words), slice_words, var_groups)
+
+
+@functools.cache
+def _sms(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 @functools.cache
 def _launchers():
     lib = _build.load("bitmm")
     packed = lib.bitmm_packed_launch
-    packed.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+    packed.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     packed.restype = ctypes.c_int
     apply = lib.bitmm_apply_launch
-    apply.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+    apply.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     apply.restype = ctypes.c_int
     return packed, apply
-
-
-def warps_for(n_vars: int) -> int:
-    """Warps per block for ``n_vars`` variables: as many as
-    :data:`MAX_WARPS` while each warp's ``[V, 33]``-word slice fits the
-    shared memory of a block; raises past the limit."""
-    per_warp = n_vars * 33 * 4
-    warps = min(MAX_WARPS, SMEM_LIMIT // max(per_warp, 1))
-    if warps < 1:
-        raise ValueError(
-            f"V={n_vars} needs {per_warp} bytes of shared memory per block, "
-            f"past the {SMEM_LIMIT} a Hopper block may use"
-        )
-    return warps
 
 
 def _check_adjacency(name: str, a_packed: torch.Tensor, device) -> int:
@@ -94,14 +157,17 @@ def bitmm_packed(x: torch.Tensor, a_packed: torch.Tensor) -> torch.Tensor:
     if dev.type == "cpu":
         return _ref.bitmm_packed_ref(x, a_packed)
     v, nw = x.shape[0], a_packed.shape[1]
-    warps = warps_for(v)
-    out = torch.empty((v, nw), dtype=torch.int32, device=dev)
+    sms = _sms(dev)
+    geo = geometry(v, nw, sms)
+    out = torch.empty((v, nw), dtype=torch.int32, device=dev)  # zeroed in C
     if v == 0 or nw == 0:
         return out
+    xw = torch.empty((v, nw), dtype=torch.int32, device=dev)
     fn, _ = _launchers()
     with torch.cuda.device(dev):
-        err = fn(x.view(torch.uint8).data_ptr(), a_packed.data_ptr(), out.data_ptr(),
-                 v, n, nw, warps, torch.cuda.current_stream(dev).cuda_stream)
+        err = fn(x.view(torch.uint8).data_ptr(), a_packed.data_ptr(),
+                 xw.data_ptr(), out.data_ptr(), v, n, nw, geo.slice_words,
+                 sms, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"bitmm_packed launch failed: CUDA error {err}")
     count_launch("bitmm_packed")
@@ -148,16 +214,21 @@ def bitmm_apply(
     if dev.type == "cpu":
         return _ref.bitmm_apply_ref(chi_packed, a_packed, lhs_flags)
     nw = a_packed.shape[1]
-    warps = warps_for(v)
+    sms = _sms(dev)
+    geo = geometry(v, nw, sms)
     out = torch.empty_like(chi_packed)
-    changed = torch.zeros((1,), dtype=torch.int32, device=dev)
     if v == 0 or nw == 0:
-        return out, changed.reshape(())
+        return out, torch.zeros((), dtype=torch.int32, device=dev)
+    # y [V, nw] for the product's atomicOr, then the changed word (both
+    # zeroed by the launcher)
+    scratch = torch.empty((v * nw + 1,), dtype=torch.int32, device=dev)
+    changed = scratch[-1:]
     _, fn = _launchers()
     with torch.cuda.device(dev):
         err = fn(chi_packed.data_ptr(), a_packed.data_ptr(),
-                 lhs_flags.data_ptr(), out.data_ptr(), changed.data_ptr(),
-                 v, n, nw, warps, torch.cuda.current_stream(dev).cuda_stream)
+                 lhs_flags.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+                 changed.data_ptr(), v, n, nw, geo.slice_words, sms,
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"bitmm_apply_packed launch failed: CUDA error {err}")
     count_launch("bitmm_apply_packed")

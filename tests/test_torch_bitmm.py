@@ -286,11 +286,73 @@ def test_wrappers_check_their_inputs():
 
 
 def test_shared_memory_limit_refuses_vars_past_it():
-    assert kernel.warps_for(1) == kernel.MAX_WARPS
-    assert kernel.warps_for(48) * 48 * 33 * 4 <= kernel.SMEM_LIMIT
-    assert kernel.warps_for(1760) == 1
+    """The update stage's ``[V, 32]`` words of ~y bound V: 1, 48 and 1,760
+    fit, the first V past the limit is refused before any launch."""
+    for v in (1, 48, 1760, kernel.MAX_VARS):
+        g = kernel.geometry(v, 1444)
+        assert v * kernel.UPDATE_BYTES_PER_VAR <= kernel.SMEM_LIMIT
+        assert g.var_groups == -(-v // kernel.GROUP)
+    assert kernel.MAX_VARS == 1816
     with pytest.raises(ValueError, match="shared memory"):
-        kernel.warps_for(1761)
+        kernel.geometry(kernel.MAX_VARS + 1, 1444)
+    with pytest.raises(ValueError, match="shared memory"):
+        kernel.geometry(kernel.MAX_VARS + 1, 0)
+
+
+def test_geometry_fills_the_card_at_the_main_path_shape():
+    """V = 48 over nw = 1,444 (the 46,200-node dense-tier corpus): at
+    least two blocks per SM, every contraction word in exactly one slice."""
+    g = kernel.geometry(48, 1444)
+    assert g.blocks >= 2 * kernel.SMS == 264
+    assert g == (12, 22, 66, 1)  # column tiles, slices, slice words, groups
+    assert g.blocks == 264  # two blocks on every SM, none in a second wave
+    assert (g.slices - 1) * g.slice_words < 1444 <= g.slices * g.slice_words
+
+
+@pytest.mark.parametrize("sms", [1, 66, 114, 132])
+@pytest.mark.parametrize("v", [1, 48, 65, 1760])
+def test_geometry_slices_never_exceed_contraction_words(v, sms):
+    """Slices cover the contraction words without an empty one, never
+    outnumber them (also where more blocks are asked for than there are
+    words) or the slices asked for, and keep more than half of those; they
+    stay within MAX_SLICE_WORDS, and the tiles and variable groups cover
+    every column and variable."""
+    for nw in (1, 2, 3, 4, 5, 31, 32, 33, 100, 129, 132, 625, 1444, 1449,
+               5000):
+        g = kernel.geometry(v, nw, sms)
+        assert 1 <= g.slices <= nw
+        assert 1 <= g.slice_words <= kernel.MAX_SLICE_WORDS
+        assert (g.slices - 1) * g.slice_words < nw <= g.slices * g.slice_words
+        tile = kernel.TILE
+        assert (g.col_tiles - 1) * tile < nw <= g.col_tiles * tile
+        group = kernel.GROUP
+        assert (g.var_groups - 1) * group < v <= g.var_groups * group
+        per_slice = g.col_tiles * g.var_groups
+        asked = min(nw, max(-(-kernel.BLOCKS_PER_SM * sms // per_slice),
+                            -(-nw // kernel.MAX_SLICE_WORDS)))
+        assert asked / 2 < g.slices <= asked
+
+
+def test_geometry_follows_the_card_sm_count():
+    """The slices follow the SM count the wrapper reads from the card: an
+    H100 PCIe's 114 SMs get two blocks each at the main-path shape, with
+    none left over for a second wave."""
+    g = kernel.geometry(48, 1444, 114)
+    assert g.blocks <= 2 * 114 and g.blocks > 114
+    assert g.slices == 19 and g.slice_words == 76
+    assert kernel.geometry(48, 1444) == kernel.geometry(48, 1444, kernel.SMS)
+
+
+def test_tiling_limits_match_the_source():
+    text = _build.SOURCES["bitmm"].read_text()
+    assert kernel.TILE == 32 * kernel.WORDS_PER_LANE
+    assert kernel.GROUP == kernel.WARPS * kernel.VARS_PER_WARP
+    for name, value in (("kWordsPerLane", kernel.WORDS_PER_LANE),
+                        ("kWarps", kernel.WARPS),
+                        ("kVarsPerWarp", kernel.VARS_PER_WARP)):
+        assert f"constexpr int {name} = {value};" in text
+    assert "int update_smem = n_vars * 32 * 4;" in text
+    assert kernel.UPDATE_BYTES_PER_VAR == 32 * 4
 
 
 def test_bitmm_source_is_built_beside_segor():

@@ -127,9 +127,37 @@ def _bitmm_case(device, v, n, seed, density=0.1):
             torch.as_tensor(flags, device=device))
 
 
-@pytest.mark.parametrize("n", [1, 31, 33, 100, 1000, 4099])
-@pytest.mark.parametrize("v", [1, 5, 48, 64])
+def _slice_boundary_n(v, where):
+    """The first n whose contraction slices hold more than one word and
+    that lies one row below, at or one row above a multiple of a slice's
+    rows, on this card's grid."""
+    offset = {"below": -1, "at": 0, "above": 1}[where]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for n in range(1_000, 40_000):
+        rows = bitmm_kernel.geometry(v, -(-n // 32), sms).slice_words * 32
+        if rows > 32 and n % rows == offset % rows:
+            return n
+    raise AssertionError(f"no n {where} a slice boundary")
+
+
+# V x n, then the split boundaries: n around a slice's row count, nw = 132
+# (a ragged column tile on the vector path; nw = 129 and n = 100, where
+# more slices are asked for than there are contraction words, are in the
+# grid), two or three variable groups, and V past 384, where the update
+# kernel's [V, 32] words of ~y pass 48 KB of shared memory, up to the
+# largest V the wrappers take (29 variable groups)
+BITMM_SHAPES = [(v, n) for v in (1, 5, 48, 64)
+                for n in (1, 31, 33, 100, 1000, 4099)] + [
+    (48, "below"), (48, "at"), (48, "above"), (48, 4200), (65, 1000),
+    (130, 4099)] + [(v, n) for v in (385, 1760, bitmm_kernel.MAX_VARS)
+                    for n in (100, 4099)]
+
+
+@pytest.mark.parametrize("v,n", BITMM_SHAPES,
+                         ids=[f"{v}-{n}" for v, n in BITMM_SHAPES])
 def test_bitmm_kernels_match_plain_versions(cuda_device, v, n):
+    if isinstance(n, str):
+        n = _slice_boundary_n(v, n)
     kernels.reset_launches()
     chi_p, a_p, flags = _bitmm_case(cuda_device, v, n, seed=n * 100 + v)
     new, ch = bitmm_kernel.bitmm_apply(chi_p, a_p, flags)
@@ -141,6 +169,36 @@ def test_bitmm_kernels_match_plain_versions(cuda_device, v, n):
     assert torch.equal(out, bitmm_ref.bitmm_packed_ref(x, a_p))
     assert kernels.LAUNCHES["bitmm_apply_packed"] == 1
     assert kernels.LAUNCHES["bitmm_packed"] == 1
+
+
+@pytest.mark.parametrize("fill", ["full", "empty"])
+def test_bitmm_kernels_full_and_empty_frontiers_across_slices(cuda_device,
+                                                              fill):
+    """Every frontier bit set over a full adjacency keeps chi whole and
+    fills every product word; an empty frontier gives empty words."""
+    n = _slice_boundary_n(48, "at")
+    chi = np.full((48, n), fill == "full")
+    a = np.ones((n, n), bool)
+    chi_p = bitops.to_words(bitops.pack_np(chi), cuda_device)
+    a_p = bitops.to_words(bitops.pack_np(a), cuda_device)
+    flags = torch.ones((48, 48), dtype=torch.int32, device=cuda_device)
+    new, ch = bitmm_kernel.bitmm_apply(chi_p, a_p, flags)
+    assert torch.equal(new, chi_p) and int(ch) == 0
+    out = bitmm_kernel.bitmm_packed(bitops.unpack(chi_p, n), a_p)
+    assert torch.equal(bitops.unpack(out, n).cpu(), torch.as_tensor(chi))
+
+
+def test_bitmm_kernels_give_the_same_bits_every_launch(cuda_device):
+    n = _slice_boundary_n(48, "above")
+    # a sparse adjacency, so that chi moves and changed is nonzero
+    chi_p, a_p, flags = _bitmm_case(cuda_device, 48, n, seed=11,
+                                    density=0.0002)
+    (new1, ch1), (new2, ch2) = (bitmm_kernel.bitmm_apply(chi_p, a_p, flags)
+                                for _ in range(2))
+    assert torch.equal(new1, new2) and int(ch1) == int(ch2) != 0
+    x = bitops.unpack(chi_p, n)
+    assert torch.equal(bitmm_kernel.bitmm_packed(x, a_p),
+                       bitmm_kernel.bitmm_packed(x, a_p))
 
 
 def test_bitmm_kernels_edge_cases(cuda_device):
@@ -163,10 +221,15 @@ def test_bitmm_kernels_edge_cases(cuda_device):
 
 
 def test_bitmm_kernels_refuse_vars_past_shared_memory(cuda_device):
-    chi_p, a_p, _ = _bitmm_case(cuda_device, 1761, 64, seed=3)
-    flags = torch.zeros((1761, 1761), dtype=torch.int32, device=cuda_device)
+    v = bitmm_kernel.MAX_VARS + 1
+    chi_p, a_p, _ = _bitmm_case(cuda_device, v, 64, seed=3)
+    flags = torch.zeros((v, v), dtype=torch.int32, device=cuda_device)
+    kernels.reset_launches()
     with pytest.raises(ValueError, match="shared memory"):
         bitmm_kernel.bitmm_apply(chi_p, a_p, flags)
+    with pytest.raises(ValueError, match="shared memory"):
+        bitmm_kernel.bitmm_packed(bitops.unpack(chi_p, 64), a_p)
+    assert not any(kernels.launch_counts().values())
 
 
 def test_packed_fused_on_card_launches_kernel_never_plain(cuda_device,
