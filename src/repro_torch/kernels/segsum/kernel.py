@@ -2,9 +2,11 @@
 
 :func:`prepare_segor` builds the blocked layout the edge engines carry
 (byte-identical to the JAX package's, so patched operands keep their
-shapes under churn); :func:`segor_blocks` is the wrapper of the CUDA kernel
-in ``csrc/segor.cu``, which fuses the frontier-bit gather into the
-segmented OR and emits packed ``int32`` words.  :func:`prepare_csr` sorts a
+shapes under churn); :func:`segor_blocks` is the wrapper of the two CUDA
+kernels in ``csrc/segor.cu``: one writes the packed frontier's
+source-major copy (:func:`source_major` launches it alone), then the
+segmented OR gathers each edge's frontier bits from that copy and emits
+packed ``int32`` words.  :func:`prepare_csr` sorts a
 segment sum's rows by segment id and :func:`segsum_csr` wraps the CUDA
 kernel in ``csrc/segsum.cu`` that sums each segment's rows.  For tensors on
 the CPU a wrapper runs the plain version (:mod:`repro_torch.kernels.segsum.
@@ -89,11 +91,26 @@ def prepare_segor(
 
 
 @functools.cache
-def _launcher():
-    fn = _build.load("segor").segor_blocks_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _launchers():
+    """The C entry points of ``csrc/segor.cu``: (transposition, segmented OR)."""
+    lib = _build.load("segor")
+    transpose = lib.segor_transpose_launch
+    transpose.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    transpose.restype = ctypes.c_int
+    segor = lib.segor_blocks_launch
+    segor.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    segor.restype = ctypes.c_int
+    return transpose, segor
+
+
+def _check_frontier(frontier_p, num_sources):
+    if frontier_p.dim() != 2 or frontier_p.shape[1] != bitops.packed_width(
+        num_sources
+    ):
+        raise ValueError(
+            f"frontier must be [V, {bitops.packed_width(num_sources)}], "
+            f"got {tuple(frontier_p.shape)}"
+        )
 
 
 def _check(frontier_p, seg_src_b, seg_dst_b, seg_win, num_sources, block_n):
@@ -106,17 +123,48 @@ def _check(frontier_p, seg_src_b, seg_dst_b, seg_win, num_sources, block_n):
         raise ValueError("segor_blocks operands must be contiguous")
     if block_n <= 0 or block_n % 32:
         raise ValueError("block_n must be a positive multiple of 32")
-    if frontier_p.dim() != 2 or frontier_p.shape[1] != bitops.packed_width(
-        num_sources
-    ):
-        raise ValueError(
-            f"frontier must be [V, {bitops.packed_width(num_sources)}], "
-            f"got {tuple(frontier_p.shape)}"
-        )
+    _check_frontier(frontier_p, num_sources)
     if seg_src_b.dim() != 2 or seg_src_b.shape != seg_dst_b.shape:
         raise ValueError("seg_src_b and seg_dst_b must both be [G, BE]")
     if seg_win.shape != seg_src_b.shape[:1]:
         raise ValueError("seg_win must be [G]")
+
+
+def source_major(frontier_p: torch.Tensor, num_sources: int) -> torch.Tensor:
+    """Source-major copy of a packed frontier -> ``int32 [32 * nw, ceil(V / 32)]``.
+
+    ``frontier_p`` is ``int32 [V, nw]`` with ``nw = ceil(num_sources /
+    32)``: bit ``v % 32`` of row ``s``, word ``v // 32`` of the result is bit
+    ``s % 32`` of ``frontier_p[v, s // 32]``, and the bits of variables past
+    ``V`` and of sources past ``num_sources`` are zero.  A CPU tensor takes
+    the plain version (:func:`repro_torch.kernels.segsum.ref.source_major_ref`);
+    a CUDA tensor launches the transposition kernel on the current stream
+    (no synchronisation) or raises.
+    """
+    if frontier_p.dtype != torch.int32:
+        raise TypeError("source_major takes an int32 frontier")
+    if not frontier_p.is_contiguous():
+        raise ValueError("source_major takes a contiguous frontier")
+    _check_frontier(frontier_p, num_sources)
+    dev = frontier_p.device
+    if dev.type == "cpu":
+        return _ref.source_major_ref(frontier_p, num_sources)
+    if dev.type != "cuda":
+        raise ValueError(f"source_major runs on cuda or cpu, not {dev}")
+    v, nw = frontier_p.shape
+    t = torch.empty((nw * bitops.WORD, bitops.packed_width(v)),
+                    dtype=torch.int32, device=dev)
+    if t.numel() == 0:
+        return t
+    with torch.cuda.device(dev):
+        err = _launchers()[0](
+            frontier_p.data_ptr(), t.data_ptr(), v, num_sources, nw,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"source_major launch failed: CUDA error {err}")
+    count_launch("segor_transpose")
+    return t
 
 
 def segor_blocks(
@@ -129,14 +177,22 @@ def segor_blocks(
     block_n: int = 256,
     num_sources: int | None = None,
 ) -> torch.Tensor:
-    """Fused frontier gather + segmented OR -> packed ``int32 [V, nw]``.
+    """Frontier gather + segmented OR -> packed ``int32 [V, nw]``.
 
     Computes the JAX package's ``segor_blocks(_edge_bits(frontier,
     src_b).transpose(1, 2, 0), dst_b, win)`` bit for bit.  The frontier
     holds ``num_sources`` bits per variable (default ``num_segments``: the
     edge engines' square node axis).  A CPU tensor takes the plain version;
-    a CUDA tensor launches the kernel on the current stream (no
-    synchronisation) or raises.
+    a CUDA tensor takes one call into ``csrc/segor.cu`` on the current
+    stream (no synchronisation) or raises.  That call zeroes the output,
+    writes the frontier's source-major copy (:func:`source_major`) into a
+    scratch tensor of the caller's device so that each edge gathers its
+    ``ceil(V / 32)`` words with one load, then ORs each run of equal
+    destinations within a warp, accumulates ``block_n * ceil(V / 32)``
+    words in shared memory and merges them into the output with
+    ``atomicOr``, since several blocks may share a window.  A ``V`` whose
+    accumulator passes the 227 KB of shared memory a block may use is
+    refused before any launch.
     """
     n_src = num_segments if num_sources is None else num_sources
     _check(frontier_p, seg_src_b, seg_dst_b, seg_win, n_src, block_n)
@@ -148,24 +204,25 @@ def segor_blocks(
         )
     if dev.type != "cuda":
         raise ValueError(f"segor_blocks runs on cuda or cpu, not {dev}")
-    v = frontier_p.shape[0]
+    v, nw_src = frontier_p.shape
     nw = bitops.packed_width(num_segments)
     g, be = seg_src_b.shape
-    smem = v * (block_n // 32) * 4
+    vw = bitops.packed_width(v)
+    smem = block_n * vw * 4
     if smem > SMEM_LIMIT:
         raise ValueError(
             f"V={v} needs {smem} bytes of shared memory per block, past the "
             f"{SMEM_LIMIT} a Hopper block may use"
         )
-    out = torch.zeros((v, nw), dtype=torch.int32, device=dev)
     if v == 0 or g == 0:
-        return out
-    fn = _launcher()
+        return torch.zeros((v, nw), dtype=torch.int32, device=dev)
+    out = torch.empty((v, nw), dtype=torch.int32, device=dev)  # zeroed by the call
+    t = torch.empty((nw_src * bitops.WORD, vw), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        err = fn(
+        err = _launchers()[1](
             frontier_p.data_ptr(), seg_src_b.data_ptr(), seg_dst_b.data_ptr(),
-            seg_win.data_ptr(), out.data_ptr(),
-            v, nw, g, be, num_segments, block_n, n_src, frontier_p.shape[1],
+            seg_win.data_ptr(), t.data_ptr(), out.data_ptr(),
+            v, nw, g, be, num_segments, block_n, n_src, nw_src,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:

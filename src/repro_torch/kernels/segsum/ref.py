@@ -8,6 +8,9 @@
   (``csrc/segor.cu``) over the blocked layout of ``prepare_segor``: what
   the kernel's wrapper runs for a tensor on the CPU, and what the kernel is
   held against on the card.
+* :func:`source_major_ref` — the source-major copy of a packed frontier
+  that the segmented-OR kernel gathers from (the transposition kernel of
+  ``csrc/segor.cu``).
 * :func:`segsum_ref` — the segment sum by ``index_add_``, and
   :func:`segsum_csr_ref`, the same over the sorted layout of the CUDA
   segment-sum kernel (``csrc/segsum.cu``): what its wrapper runs for a
@@ -82,6 +85,23 @@ def segor_blocks_ref(
     src = torch.where(live, src, 0)
     dst = torch.where(live, dst, num_segments)
     return segor_words(edge_bits(frontier_p, src), dst, num_segments)
+
+
+def source_major_ref(frontier_p: torch.Tensor, num_sources: int) -> torch.Tensor:
+    """Source-major copy of a packed frontier: ``int32 [32 * nw, ceil(V / 32)]``.
+
+    ``frontier_p`` is ``[V, nw]`` with ``nw = ceil(num_sources / 32)``; bit
+    ``v % 32`` of row ``s``, word ``v // 32`` of the result is bit ``s % 32``
+    of ``frontier_p[v, s // 32]``.  Unpack, transpose, pack: every bit of a
+    variable past ``V`` or a source past ``num_sources`` is zero.  Applied
+    to its own result with ``num_sources = V``, it gives ``frontier_p`` back
+    in its first ``V`` rows, with the pad bits past ``num_sources`` cleared.
+    """
+    v, nw = frontier_p.shape
+    rows = torch.zeros((nw * bitops.WORD, v), dtype=torch.bool,
+                       device=frontier_p.device)
+    rows[:num_sources] = bitops.unpack(frontier_p, num_sources).T
+    return bitops.pack(rows)
 
 
 def segsum_ref(

@@ -34,9 +34,10 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _operands(device, v, n, e, seed, block_e=256, block_n=256, dst=None):
+def _operands(device, v, n, e, seed, block_e=256, block_n=256, dst=None,
+              fill=None):
     rng = np.random.default_rng(seed)
-    frontier = rng.random((v, n)) < 0.4
+    frontier = rng.random((v, n)) < 0.4 if fill is None else np.full((v, n), fill)
     src = rng.integers(0, n, e).astype(np.int32)
     if dst is None:
         dst = rng.integers(0, n, e).astype(np.int32)
@@ -49,7 +50,13 @@ def _operands(device, v, n, e, seed, block_e=256, block_n=256, dst=None):
             as_t(seg_b), as_t(win))
 
 
-@pytest.mark.parametrize("v", [1, 7, 48, 128])
+# V on both sides of a word of variables (Vw = 1, 2, 3, 7), and the largest
+# V whose accumulator fits a block at block_n = 256 (Vw = 227, past the
+# 48 KB opt-in)
+SEGOR_VARS = [1, 7, 48, 128, 31, 32, 33, 64, 65, 200, 7264]
+
+
+@pytest.mark.parametrize("v", SEGOR_VARS)
 def test_cuda_kernel_matches_plain_version(cuda_device, v):
     kernels.reset_launches()
     args = _operands(cuda_device, v=v, n=1000, e=20_000, seed=v)
@@ -57,6 +64,64 @@ def test_cuda_kernel_matches_plain_version(cuda_device, v):
     torch.cuda.synchronize()
     assert torch.equal(out, ref.segor_blocks_ref(*args, num_segments=1000))
     assert kernels.LAUNCHES["segor_blocks"] == 1
+
+
+def _runs(lengths):
+    """Sorted destinations with the given run lengths, one id a run."""
+    return np.repeat(np.arange(len(lengths)), lengths).astype(np.int32)
+
+
+# name: (V, n, E, destinations or None, fill, block_e, block_n)
+SEGOR_BRANCH_CASES = {
+    "block_n_32": (9, 50, 900, None, None, 64, 32),
+    "block_n_32_two_words": (65, 100, 900, None, None, 64, 32),
+    "full_frontier": (48, 1000, 20_000, None, True, 256, 256),
+    "empty_frontier": (48, 1000, 20_000, None, False, 256, 256),
+    "one_destination": (33, 40, 2000, np.full(2000, 7, np.int32), None, 256, 256),
+    "runs_across_warps": (40, 260, 568, _runs([1, 31, 32, 33, 64, 65, 100, 2, 3,
+                                                40, 32, 33, 64, 65, 3]),
+                          None, 256, 256),
+    "window_shared_by_many_blocks": (48, 300, 20_000,
+                                     np.arange(20_000, dtype=np.int32) % 200,
+                                     None, 256, 256),
+    "block_e_not_a_multiple_of_32": (33, 90, 700, None, None, 100, 256),
+    "no_edges": (8, 70, 0, None, None, 256, 256),
+}
+
+
+@pytest.mark.parametrize("name", list(SEGOR_BRANCH_CASES))
+def test_cuda_kernel_branch_cases(cuda_device, name):
+    """Each branch of the kernel pair against the plain version: a word of
+    variables and more at block_n = 32, full and empty frontiers, runs of
+    one destination as long as a warp and longer (across warps), a window
+    that many blocks share, a partial last warp, no edges; two launches
+    give the same bits."""
+    v, n, e, dst, fill, block_e, block_n = SEGOR_BRANCH_CASES[name]
+    args = _operands(cuda_device, v=v, n=n, e=e, seed=e + n, block_e=block_e,
+                     block_n=block_n, dst=dst, fill=fill)
+    got = [kernel.segor_blocks(*args, num_segments=n, block_n=block_n)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], got[1])
+    assert torch.equal(got[0], ref.segor_blocks_ref(*args, num_segments=n,
+                                                     block_n=block_n))
+    if fill is False:
+        assert not got[0].any()
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 1000, 4099])
+@pytest.mark.parametrize("v", [1, 32, 33, 100, 7264])
+def test_source_major_kernel_matches_plain_version(cuda_device, v, n):
+    rng = np.random.default_rng(v + n)
+    f = bitops.pack_np(rng.random((v, n)) < 0.5)
+    if n % 32:  # dirty pad bits must not reach the copy
+        f[:, -1] |= np.uint32(0xFFFFFFFF) << np.uint32(n % 32)
+    f = bitops.to_words(f, cuda_device)
+    kernels.reset_launches()
+    got = kernel.source_major(f, n)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.source_major_ref(f, n))
+    assert kernels.LAUNCHES["segor_transpose"] == 1
 
 
 def test_cuda_kernel_window_revisits_and_empty_edges(cuda_device):
@@ -75,6 +140,16 @@ def test_cuda_kernel_refuses_vars_past_shared_memory(cuda_device):
     args = _operands(cuda_device, v=8000, n=64, e=10, seed=3)
     with pytest.raises(ValueError, match="shared memory"):
         kernel.segor_blocks(*args, num_segments=64)
+
+
+def test_cuda_kernel_refuses_the_first_v_past_shared_memory(cuda_device):
+    """V = 7,265 needs 228 words of accumulator a destination, one past the
+    227 KB of a block at block_n = 256: refused before any launch."""
+    args = _operands(cuda_device, v=7265, n=64, e=10, seed=3)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="shared memory"):
+        kernel.segor_blocks(*args, num_segments=64)
+    assert not any(kernels.launch_counts().values())
 
 
 def test_card_operands_are_blocked_and_never_run_plain(cuda_device):
@@ -295,6 +370,16 @@ def test_segsum_kernel_edge_cases(cuda_device):
     assert torch.equal(out.cpu(), torch.full((1, 4), 16.0))
     with pytest.raises(TypeError):
         ops.segsum(np.ones((4, 2), np.float16), np.zeros(4, np.int32), 2)
+
+
+@pytest.mark.parametrize("v,e,n", [(1, 31, 5), (33, 5000, 300), (65, 700, 2000)])
+def test_segor_op_edge_axis_matches_cpu(cuda_device, v, e, n):
+    """``ops.segor`` gathers along the edge axis (n_src = E != n)."""
+    rng = np.random.default_rng(v + e + n)
+    bits = (rng.random((v, e)) < 0.3).astype(np.int8)
+    ids = rng.integers(0, n, e).astype(np.int32)
+    got = ops.segor(bits, ids, n)
+    assert torch.equal(got.cpu(), ops.segor(bits, ids, n, device="cpu"))
 
 
 def test_segor_op_on_card_matches_cpu(cuda_device):

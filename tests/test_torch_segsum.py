@@ -182,3 +182,45 @@ def test_segor_block_boundaries_and_small_blocks():
     bits, ids = _segor_case(11, 4, 900, 50, density=0.2)
     want, got = _segor_both(bits, ids, 50, block_e=64, block_n=32)
     assert np.array_equal(got, want)
+
+
+# --------------------------------------------------------------------- #
+# the source-major copy of a packed frontier (segor's first kernel)
+# --------------------------------------------------------------------- #
+def _frontier(v, n, seed, dirty_pads=False):
+    f = bitops.pack_np(np.random.default_rng(seed).random((v, n)) < 0.5)
+    if dirty_pads and n % 32:
+        f[:, -1] |= np.uint32(0xFFFFFFFF) << np.uint32(n % 32)
+    return f
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 1000])
+@pytest.mark.parametrize("v", [1, 32, 33, 100])
+def test_source_major_is_a_bit_transposition(v, n):
+    """Equal to a numpy transposition of the unpacked bits, its own inverse
+    up to row padding, and zero in every bit of a variable past V or a
+    source past n, even where the frontier's pad bits are set."""
+    f = _frontier(v, n, seed=v * 1000 + n, dirty_pads=True)
+    t = ref.source_major_ref(torch.from_numpy(f.view(np.int32)), n)
+    nw, vw = -(-n // 32), -(-v // 32)
+    assert t.shape == (32 * nw, vw) and t.dtype == torch.int32
+    bits = bitops.unpack_np(f, n)  # [V, n], pad bits dropped
+    want = np.zeros((32 * nw, 32 * vw), bool)
+    want[:n, :v] = bits.T
+    assert np.array_equal(bitops.unpack_np(bitops.words_np(t), 32 * vw), want)
+    back = ref.source_major_ref(t, v)
+    assert back.shape == (32 * vw, nw)
+    assert np.array_equal(bitops.words_np(back[:v]), bitops.pack_np(bits))
+    assert not back[v:].any()
+
+
+def test_source_major_wrapper_runs_the_plain_version_on_the_cpu():
+    f = torch.from_numpy(_frontier(9, 77, seed=1).view(np.int32))
+    kernels.reset_launches()
+    assert torch.equal(kernel.source_major(f, 77), ref.source_major_ref(f, 77))
+    assert kernels.launch_counts().get("segor_transpose", 0) == 0
+    assert kernel.source_major(f[:, :0], 0).shape == (0, 1)
+    with pytest.raises(ValueError, match="frontier must be"):
+        kernel.source_major(f, 100)
+    with pytest.raises(TypeError):
+        kernel.source_major(f.long(), 77)
