@@ -35,6 +35,18 @@ failure fatal:
    same queries then run through a ``device="cpu"`` ``GraphDB`` (plain
    versions) and through ``engine="jacobi_packed"`` on the card, and must
    agree;
+6. the partitioned engine on the card over phase 3's corpus:
+   ``GraphDB(engine="partitioned", n_blocks=4)`` serves the same requests
+   cold and warm with the launch counts zeroed just before and read just
+   after; survivors and bindings equal phase 3's ``sparse`` results, sweeps
+   the ``jacobi_packed`` run's, and each request launches K1 sweeps x
+   operators x blocks times; a delete and re-insert resumes a plan whose
+   answers equal the cold run's; the microbatch again over a mesh of every
+   visible card; K1 at the layout's largest block (``n_local``
+   destinations, the whole padded frontier) against its plain version bit
+   for bit and timed with L2 flushed; then ``launch.serve --engine
+   partitioned --devices <visible cards> --mutate`` in process, which must
+   serve every request;
 5. serving on the card: ``AsyncServer`` with two replicas over phase 3's
    corpus takes 64 requests of the serving template from two tenants, a
    delete/re-insert churn, a dictionary-growing insert and a fence, with
@@ -631,6 +643,159 @@ def phase_cross_checks(graph, runs):
         same_results(name, res, jac[name][0], sweeps=False)
     log(f"jacobi_packed on the card: survivors and bindings equal "
         f"({time.perf_counter() - t0:.1f}s)")
+    return jac
+
+
+# --------------------------------------------------------------------- #
+# phase 6: the partitioned engine on the card
+# --------------------------------------------------------------------- #
+def time_partitioned_block(ops, n_pad, m, w, states, flush) -> None:
+    """K1 on block ``w`` of operator ``m`` of the partitioned microbatch
+    plan at each (name, chi) state: bit for bit against its plain version,
+    its time with L2 flushed before each call beside its plain version and
+    the bound (edge ids and windows, the whole frontier and the block's
+    output words, at the card's memory rate)."""
+    import torch
+
+    from repro_torch.core import bitops
+    from repro_torch.kernels.segsum import kernel, ref
+
+    src_b, dst_b, win = ops.part_seg[m][w]
+    v, nw_src = ops.init_packed.shape
+    n_local = n_pad // len(ops.part_seg[m])
+    g, be = src_b.shape
+    nlw = bitops.packed_width(n_local)
+    bytes_moved = g * be * 8 + g * 4 + v * nw_src * 4 + v * nlw * 4
+    bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    log(f"partitioned K1 at the largest block (operator {m}, block {w} of "
+        f"{len(ops.part_seg[m])}): V={v}, n_local={n_local}, n_pad={n_pad}, "
+        f"G={g}, BE={be}; bound {bound_ms:.4f} ms ({bytes_moved} bytes at "
+        f"3.35 TB/s)")
+    for state, chi_p in states:
+        def call(chi_p=chi_p):
+            return kernel.segor_blocks(chi_p, src_b, dst_b, win,
+                                       num_segments=n_local, num_sources=n_pad)
+
+        def plain(chi_p=chi_p):
+            return ref.segor_blocks_ref(chi_p, src_b, dst_b, win,
+                                        num_segments=n_local)
+
+        got, want = call(), plain()
+        if not torch.equal(got, want):
+            raise AssertionError(f"partitioned K1 != plain version ({state})")
+        if not torch.equal(call(), got):
+            raise AssertionError(f"partitioned K1: two launches differ ({state})")
+        ms = median_ms(call, flush=flush)
+        plain_ms = median_ms(plain, flush=flush)
+        split = device_times(call)
+        log(f"  {state}: equal bits (two launches); kernel {ms:.4f} ms with "
+            f"L2 flushed, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms; "
+            "device time per call (L2 not flushed): "
+            + ("; ".join(f"{key[:60]} {t:.4f} ms" for key, t in split.items())
+               or "not measured (the trace shows no device time)")
+            + f"; sum {sum(split.values()):.4f} ms")
+
+
+def phase_partitioned(graph, runs, jac):
+    """Phase 6: ``GraphDB(engine="partitioned", n_blocks=4)`` on the card
+    over the main path's corpus, cold and warm, with the launch counts
+    zeroed just before and read just after; survivors and bindings equal
+    the sparse engine's, sweeps the Jacobi engine's, K1 launched sweeps x
+    operators x blocks times a request; a delete and re-insert that
+    resumes a plan, its answers equal the cold run's; the same microbatch
+    over a mesh of every visible card; K1 at the layout's largest block
+    against its plain version and timed; then the serving driver with
+    ``--engine partitioned --devices <visible cards>`` in process."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core import sparql
+    from repro_torch.db import GraphDB
+    from repro_torch.distributed import ctx
+    from repro_torch.engine import canonicalize
+    from repro_torch.launch import serve as launch_serve
+
+    t_phase = time.perf_counter()
+    n_blocks = 4
+    db = GraphDB(graph, engine="partitioned", n_blocks=n_blocks)
+    kernels.reset_launches()
+    part = serve(db)
+    expected = {}  # K1 launches a cold run should make, from its plans
+    for name, texts in workload():
+        expected[name] = 0
+        for q in sparql.union_split(sparql.parse(texts[0])):
+            plan, _ = db._engine.plan_for(canonicalize(q), bucket=len(texts))
+            expected[name] += (plan.last_sweeps * len(plan.csoi.mats)
+                               * plan.n_blocks)
+    resume_delete, resume_insert = churn(db, graph, part)
+    launches = kernels.launch_counts()
+    if not launches.get("segor_blocks"):
+        raise AssertionError("the partitioned path never launched segor_blocks")
+    for name, (res, cold, warm, n_launch, stages) in part.items():
+        same_results(name, res, runs[name][0], sweeps=False)
+        same_results(name, res, jac[name][0])
+        want = expected[name]
+        if n_launch != want:
+            raise AssertionError(f"{name}: {n_launch} K1 launches, expected "
+                                 f"sweeps x operators x blocks = {want}")
+        split = ", ".join(f"{k} {t:.4f}s" for k, t in sorted(stages.items()))
+        log(f"partitioned {name}: requests {len(res)}, sweeps {res[0].sweeps}, "
+            f"cold {cold:.4f}s, warm {warm:.4f}s ({split}), K1 launches (cold "
+            f"run) {n_launch} = sweeps x operators x {n_blocks} blocks")
+    m = db.metrics()
+    texts = dict(workload())["serve_template_x16"]
+    # the resumed plan against a cold build on the same snapshot
+    cold_db = GraphDB(db.graph, engine="partitioned", n_blocks=n_blocks)
+    same_results("partitioned after delete + re-insert",
+                 db.execute_many(texts), cold_db.execute_many(texts),
+                 sweeps=False)
+    del cold_db
+    log(f"partitioned: survivors and bindings equal sparse's, sweeps equal "
+        f"jacobi_packed's on every query; launches {launches}; plans_resumed "
+        f"{m.plans_resumed}, resume after delete {resume_delete:.4f}s, after "
+        f"insert {resume_insert:.4f}s, answers equal a cold build's")
+    log(f"partitioned warm microbatch: {device_share(db, texts)}")
+    mesh = ctx.node_mesh()
+    on_mesh = GraphDB(graph, engine="partitioned", n_blocks=n_blocks, mesh=mesh)
+    t0 = time.perf_counter()
+    same_results("partitioned on the mesh", on_mesh.execute_many(texts),
+                 part["serve_template_x16"][0])
+    log(f"partitioned over a mesh of {mesh.size} card(s), {n_blocks} blocks: "
+        f"the microbatch equal, sweeps too ({time.perf_counter() - t0:.1f}s)")
+    del on_mesh
+    states = solved_states(db)
+    _, plan, init, final = states[0]
+    ops = plan.operands
+    by_g = max(((mm, w) for mm in range(len(ops.part_seg))
+                for w in range(n_blocks)),
+               key=lambda k: ops.part_seg[k[0]][k[1]][0].shape[0])
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=CARD)  # > L2
+    time_partitioned_block(ops, ops.init.shape[-1], *by_g,
+                           [("initial chi", init), ("chi after the fixpoint", final)],
+                           flush)
+    del flush, states, plan, ops, init, final, db
+    free_card()
+    out = io.StringIO()
+    n_cards = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        launch_serve.main(["--engine", "partitioned", "--devices", str(n_cards),
+                           "--requests", "16", "--batch", "8", "--mutate"])
+    lines = out.getvalue().splitlines()
+    served = [ln for ln in lines if ln.startswith("served ")]
+    if not served or not served[0].split()[1].split("/")[0] == (
+            served[0].split()[1].split("/")[1]):
+        raise AssertionError("launch.serve --engine partitioned did not serve "
+                             "every request:\n" + "\n".join(lines))
+    for ln in lines:
+        if not ln.startswith("batch of "):
+            log(f"  launch.serve: {ln}")
+    log(f"launch.serve --engine partitioned --devices {n_cards} in process: "
+        f"{time.perf_counter() - t0:.1f}s; phase 6 seconds: "
+        f"{time.perf_counter() - t_phase:.1f}")
 
 
 # --------------------------------------------------------------------- #
@@ -1414,9 +1579,17 @@ def solved_states(db):
     """Each main-path plan with its chi as the main path solves it: the
     plan's init with the requests' constants scattered in (as
     ``CompiledPlan._run`` does) and its chi after the fixpoint, both packed
-    on the card; union parts apart.  Returns (name, plan, init, final)."""
+    on the card over the plan's node axis (the partitioned layout's is
+    padded past the graph's, with dead zero words); union parts apart.
+    Returns (name, plan, init, final)."""
+    import torch.nn.functional as F
+
     from repro_torch.core import bitops, sparql
     from repro_torch.engine import canonicalize
+
+    def words(bits, width):
+        w = bitops.to_words(bitops.pack_np(bits), CARD)
+        return F.pad(w, (0, width - w.shape[-1]))
 
     out = []
     for name, texts in workload():
@@ -1426,13 +1599,12 @@ def solved_states(db):
             plan, _ = db._engine.plan_for(inst[0], bucket=len(texts))
             bindings = [i.constants for i in inst]
             init = plan.operands.init_packed
+            width = init.shape[-1]
             if plan.n_slot_rows:
-                rows = bitops.to_words(bitops.pack_np(plan.const_rows(bindings)),
-                                       init.device)
+                rows = words(plan.const_rows(bindings), width)
                 init = init.index_put((plan._scatter,), init[plan._scatter] & rows)
             chi, _ = plan.execute(bindings)
-            out.append((name, plan, init,
-                        bitops.to_words(bitops.pack_np(chi), init.device)))
+            out.append((name, plan, init, words(chi, width)))
     return out
 
 
@@ -1639,7 +1811,9 @@ def main() -> int:
     segsum_record = phase_segsum_full(graph, args.seed)
     log("phase 3: main path")
     db, runs, launches = phase_main_path(graph)
-    phase_cross_checks(graph, runs)
+    jac = phase_cross_checks(graph, runs)
+    log("phase 6: the partitioned engine")
+    phase_partitioned(graph, runs, jac)
     log("phase 5: serving")
     phase_serving(graph, args.universities, args.seed)
     dense_records = phase_dense_tier(args.seed)

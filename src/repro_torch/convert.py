@@ -57,8 +57,9 @@ def operands_from_numpy(fields: dict, *, device=DEFAULT_DEVICE) -> Operands:
     is (a card refuses the flat lists); given both edge layouts, as the
     reference carries them, the device's own is taken, as
     ``make_sparse_operands`` builds it — the blocked layout on a card, the
-    flat lists on the CPU.  Fields the port's ``Operands`` does not have
-    (the partitioned layout) must be ``None``.
+    flat lists on the CPU.  The partitioned layout's ``[W, Eb]`` blocks
+    (``edge_src_b`` / ``edge_dst_b``) are the CPU's, as the flat lists
+    are.  A field the port's ``Operands`` does not have must be ``None``.
     """
     device = resolve_device(device)
     known = {f.name for f in dataclasses.fields(Operands)}

@@ -24,6 +24,10 @@ the whole fixpoint:
   as the reference, so the sweep counts are equal, not just similar.
 * ``solve_sparse(mode="jacobi_packed")`` — all operators read one frontier
   per sweep; their shrink masks AND together.
+* ``solve_partitioned`` — Jacobi sweeps over edges split by destination
+  block (:func:`make_partitioned_operands`), one segmented OR per block;
+  over a :class:`repro_torch.distributed.ctx.NodeMesh` each block's
+  columns of chi live on its device.
 * ``solve_worklist`` — the paper's own sequential strategy (numpy), kept as
   the oracle.
 
@@ -155,15 +159,25 @@ class Operands:
     seg_src_b: tuple | None = None  # per-mat int32 [G_m, BE] source nodes
     seg_dst_b: tuple | None = None  # per-mat int32 [G_m, BE] absolute dst
     seg_win: tuple | None = None  # per-mat int32 [G_m] dst window
+    # partitioned layout: edges split by destination block, W blocks of
+    # n_local = n_pad / W nodes; sources stay global ids in [0, n_pad)
+    edge_src_b: tuple | None = None  # per-mat int32 [W, Eb] source nodes
+    edge_dst_b: tuple | None = None  # per-mat int32 [W, Eb] local dst (pad = n_local)
+    # the same blocks in the blocked segmented-OR layout over local dst ids:
+    # per mat, per block a (seg_src_b [G, BE], seg_dst_b [G, BE], seg_win [G])
+    part_seg: tuple | None = None
 
     def __post_init__(self):
-        layouts = (self.adj_dense, self.adj_packed, self.edge_src, self.seg_win)
+        layouts = (self.adj_dense, self.adj_packed, self.edge_src,
+                   self.seg_win, self.edge_src_b, self.part_seg)
         if sum(x is not None for x in layouts) != 1:
             raise ValueError(
                 "Operands hold exactly one edge layout: adj_dense, "
-                "adj_packed, edge_src/edge_dst or seg_src_b/seg_dst_b/seg_win"
+                "adj_packed, edge_src/edge_dst, seg_src_b/seg_dst_b/seg_win, "
+                "edge_src_b/edge_dst_b or part_seg"
             )
-        if self.edge_src is not None and self.init.device.type != "cpu":
+        flat = self.edge_src is not None or self.edge_src_b is not None
+        if flat and self.init.device.type != "cpu":
             raise ValueError(
                 f"operands on {self.init.device} need the blocked layout "
                 "(or the dense or packed one): only the CPU runs the flat "
@@ -175,14 +189,37 @@ class Operands:
         """Whether the edges are in the blocked segmented-OR layout."""
         return self.seg_win is not None
 
+    @property
+    def partitioned(self) -> bool:
+        """Whether the edges are split by destination block."""
+        return self.edge_src_b is not None or self.part_seg is not None
 
-def _base_operands(c: CompiledSOI, device) -> dict:
+    @property
+    def n_blocks(self) -> int | None:
+        """Destination blocks of the partitioned layout (``None`` for any
+        other layout, or when there is no operator to read it from)."""
+        if self.part_seg:
+            return len(self.part_seg[0])
+        if self.edge_src_b:
+            return int(self.edge_src_b[0].shape[0])
+        return None
+
+
+def _init_fields(init_np: np.ndarray, device, n_pad: int | None = None) -> dict:
+    """``init`` and ``init_packed`` (packed once on the host: the sweep
+    starts from these words), padded with dead columns to ``n_pad``."""
+    n = init_np.shape[-1]
+    if n_pad is not None and n_pad != n:
+        init_np = np.pad(init_np, ((0, 0), (0, n_pad - n)))
+    return dict(init=torch.as_tensor(init_np, device=device),
+                init_packed=bitops.to_words(bitops.pack_np(init_np), device))
+
+
+def _base_operands(c: CompiledSOI, device, n_pad: int | None = None) -> dict:
     mat_rhs, mat_table = _per_mat_tables(c, device)
     copy_rhs, var_copy = _copy_tables(c, device)
     return dict(
-        init=torch.as_tensor(np.asarray(c.init, bool), device=device),
-        # packed once on the host: the sweep starts from these words
-        init_packed=bitops.to_words(bitops.pack_np(c.init), device),
+        **_init_fields(np.asarray(c.init, bool), device, n_pad),
         mat_rhs=mat_rhs,
         mat_table=mat_table,
         mat_lhs_flags=_mat_lhs_flags(c, device),
@@ -351,6 +388,142 @@ def make_sparse_operands(
 
 
 # --------------------------------------------------------------------- #
+# the partitioned layout: edges split by destination block
+# --------------------------------------------------------------------- #
+def _partitioned_mat(
+    s: np.ndarray, t: np.ndarray, n_blocks: int, n_local: int, min_eb: int = 1
+) -> tuple[np.ndarray, np.ndarray]:
+    """Destination-partitioned (block, local-dst) layout for one operator.
+
+    Blocks pad to a common edge count ``>= min_eb`` (pad rows use the
+    out-of-range local id ``n_local`` and are dropped by the segment
+    reduce); ``min_eb`` lets an operand patch keep the superseded shape.
+    Equal to the JAX package's arrays element for element.
+    """
+    blk = t // n_local
+    order = np.argsort(blk, kind="stable")
+    s, t, blk = s[order], t[order], blk[order]
+    counts = np.bincount(blk, minlength=n_blocks)
+    eb = max(int(counts.max()) if counts.size else 1, 1, min_eb)
+    src_b = np.zeros((n_blocks, eb), np.int32)
+    dst_b = np.full((n_blocks, eb), n_local, np.int32)  # pad -> dropped
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    for w in range(n_blocks):
+        k = counts[w]
+        src_b[w, :k] = s[starts[w] : starts[w] + k]
+        dst_b[w, :k] = t[starts[w] : starts[w] + k] - w * n_local
+    return src_b, dst_b
+
+
+def padded_node_count(n: int, n_blocks: int) -> int:
+    """Smallest node count splitting into ``n_blocks`` uniform blocks of
+    whole 32-bit words, so the blocks' packed local words concatenate
+    directly into the global word order (pad columns are dead and sliced
+    off after the solve)."""
+    n_local = -(-max(-(-n // n_blocks), 1) // bitops.WORD) * bitops.WORD
+    return n_local * n_blocks
+
+
+def _block_shard(b: int, n_blocks: int, n_shards: int) -> int:
+    """The mesh position of destination block ``b``: blocks are placed
+    block-major, ``n_blocks / n_shards`` consecutive blocks a device."""
+    return b * n_shards // n_blocks
+
+
+def _block_devices(n_blocks: int, mesh, device) -> tuple:
+    """The device of each destination block: block-major over ``mesh``'s
+    devices (a :class:`repro_torch.distributed.ctx.NodeMesh`), or ``device``
+    for every block without a mesh."""
+    if mesh is None:
+        return (device,) * n_blocks
+    return tuple(mesh.devices[_block_shard(b, n_blocks, mesh.size)]
+                 for b in range(n_blocks))
+
+
+def _partitioned_layout(
+    c: CompiledSOI, g: Graph, n_blocks: int, n_pad: int, device,
+    blocked: bool, mesh=None, mats: list[int] | None = None,
+    old: Operands | None = None,
+) -> dict:
+    """The partitioned edge fields of operators ``mats`` (all by default)
+    built against ``g``; the other operators carry over from ``old``, and
+    rebuilt ones keep ``old``'s capacity (``min_eb`` of the flat blocks,
+    ``min_g`` of each block's segmented-OR layout) whenever their edges
+    still fit.
+
+    The flat layout (the CPU's) is the JAX package's ``int32 [W, Eb]``
+    pair.  The blocked layout (a card's) gives each block K1's layout
+    (:func:`repro_torch.kernels.segsum.kernel.prepare_segor`) over its RAW
+    local destinations with ``num_segments = n_local``: its pad rows carry
+    that layout's sentinel, never the flat layout's ``n_local``, which
+    would alias a live bit where ``n_local`` is not a multiple of the
+    window.  Sources stay global ids, and each block lives on its device
+    (:func:`_block_devices`).
+    """
+    n_local = n_pad // n_blocks
+    mats = range(len(c.mats)) if mats is None else mats
+    if blocked:
+        col = list(old.part_seg) if old is not None else [None] * len(c.mats)
+        devices = _block_devices(n_blocks, mesh, device)
+        for m in mats:
+            s, t = _oriented_edges(g, *c.mats[m])
+            blk = t // n_local
+            order = np.argsort(blk, kind="stable")
+            s, t = s[order], t[order]
+            bounds = np.searchsorted(blk[order], np.arange(n_blocks + 1))
+            blocks = []
+            for w in range(n_blocks):
+                lo, hi = bounds[w], bounds[w + 1]
+                cap = 0 if old is None else int(old.part_seg[m][w][0].shape[0])
+                blocks.append(_segor_mat(s[lo:hi], t[lo:hi] - w * n_local,
+                                         n_local, devices[w], min_g=cap))
+            col[m] = tuple(blocks)
+        return {"part_seg": tuple(col)}
+    srcs = list(old.edge_src_b) if old is not None else [None] * len(c.mats)
+    dsts = list(old.edge_dst_b) if old is not None else [None] * len(c.mats)
+    for m in mats:
+        cap = 1 if old is None else int(old.edge_src_b[m].shape[1])
+        sb, db = _partitioned_mat(*_oriented_edges(g, *c.mats[m]), n_blocks,
+                                  n_local, min_eb=cap)
+        srcs[m], dsts[m] = _i32(sb, device), _i32(db, device)
+    return {"edge_src_b": tuple(srcs), "edge_dst_b": tuple(dsts)}
+
+
+def make_partitioned_operands(
+    c: CompiledSOI, g: Graph, n_blocks: int, adj_cache: dict | None = None,
+    *, device=DEFAULT_DEVICE, mesh=None,
+) -> Operands:
+    """Destination-partitioned (vertex-cut) edge layout: the host-side graph
+    partitioner of the ``partitioned`` engine.
+
+    The node axis is padded up to ``n_pad`` (:func:`padded_node_count`), a
+    multiple of ``n_blocks`` blocks of whole words: pad columns start
+    all-False in ``init``, receive no edges and stay dead through every
+    sweep; slice ``chi[:, :g.n_nodes]`` after solving.  A card takes each
+    block's segmented-OR layout, the CPU the JAX package's flat ``[W,
+    Eb]`` blocks (see :func:`_partitioned_layout`).  With ``mesh`` (a
+    :class:`repro_torch.distributed.ctx.NodeMesh` of ``device``'s type),
+    block w's edges live on its device (:func:`_block_devices`).  The edge
+    blocks depend only on (mats, graph, n_blocks, device, mesh) and are
+    shared across plans through ``adj_cache``.
+    """
+    device = resolve_device(device)
+    if mesh is not None and mesh.device_type != device.type:
+        raise ValueError(f"a mesh of {mesh.device_type} devices cannot hold "
+                         f"operands on {device}")
+    blocked = device.type == "cuda"
+    n_pad = padded_node_count(g.n_nodes, n_blocks)
+    layout = _cached_adj(
+        adj_cache,
+        ("partitioned", tuple(c.mats), n_blocks, str(device), blocked, mesh),
+        g,
+        lambda: _partitioned_layout(c, g, n_blocks, n_pad, device, blocked,
+                                    mesh),
+    )
+    return Operands(**layout, **_base_operands(c, device, n_pad))
+
+
+# --------------------------------------------------------------------- #
 # incremental maintenance: operand patching + destabilization closure
 # --------------------------------------------------------------------- #
 def patch_operands(
@@ -360,6 +533,7 @@ def patch_operands(
     touched_labels: set[int],
     *,
     adj_cache: dict | None = None,
+    mesh=None,
 ) -> Operands:
     """Patch device operands in place of a full rebuild (DESIGN.md Sect. 8).
 
@@ -374,8 +548,11 @@ def patch_operands(
     packed adjacency is patched out of place: the stacked tensor may be
     shared, through ``adj_cache``, with sibling plans and with plans still
     bound to the previous snapshot, so it is never written to.  The Eq.-13
-    ``init`` always refreshes.  The shared ``adj_cache`` entry is re-keyed
-    to ``g`` so sibling plans pick the patched arrays up as a hit.
+    ``init`` always refreshes (over the partitioned layout's padded node
+    axis, which keeps its block count).  The shared ``adj_cache`` entry is
+    re-keyed to ``g`` so sibling plans pick the patched arrays up as a hit;
+    ``mesh`` is the one the partitioned operands were built over, and each
+    rebuilt block goes back to its device.
     """
     device = ops.init.device
     touched = [
@@ -398,16 +575,23 @@ def patch_operands(
             adj_cache, (kind, tuple(c_new.mats), str(device)), g,
             patch_adjacency,
         )}
+    elif ops.partitioned:
+        n_pad, w = ops.init.shape[-1], ops.n_blocks
+        blocked = ops.part_seg is not None
+        layout = _cached_adj(
+            adj_cache,
+            ("partitioned", tuple(c_new.mats), w, str(device), blocked, mesh),
+            g,
+            lambda: _partitioned_layout(c_new, g, w, n_pad, device, blocked,
+                                        mesh, touched, ops),
+        )
     else:
         layout = _cached_adj(
             adj_cache, ("sparse", tuple(c_new.mats), str(device), ops.blocked),
             g, lambda: _edge_layout(c_new, g, device, ops.blocked, touched, ops),
         )
     return dataclasses.replace(
-        ops,
-        init=torch.as_tensor(init_np, device=device),
-        init_packed=bitops.to_words(bitops.pack_np(init_np), device),
-        **layout,
+        ops, **_init_fields(init_np, device, ops.init.shape[-1]), **layout
     )
 
 
@@ -491,11 +675,21 @@ def _per_var_mask_packed(y_p: torch.Tensor, m: int, ops: Operands) -> torch.Tens
     return _and_rows(vals[ops.mat_table[m]])
 
 
+def _moved(new, old) -> bool:
+    """Whether any word of chi moved: one read to the host.  chi is a
+    tensor, or a tuple of column shards on their devices, whose flags
+    gather onto the first shard's device before the read."""
+    if isinstance(new, torch.Tensor):
+        return bool(torch.any(new != old))
+    flags = [torch.any(a != b) for a, b in zip(new, old)]
+    return bool(torch.stack([f.to(flags[0].device) for f in flags]).any())
+
+
 def _sweep_fixpoint(
-    sweep: Callable[[torch.Tensor], torch.Tensor],
-    init: torch.Tensor,
+    sweep: Callable,
+    init,
     max_sweeps: int | None,
-) -> tuple[torch.Tensor, int]:
+) -> tuple:
     """The fixpoint driver: iterate ``sweep`` from ``init`` until chi stops
     changing (or ``max_sweeps``), reading convergence to the host once per
     sweep.  Counts sweeps as the reference's ``lax.while_loop`` does: the
@@ -504,7 +698,7 @@ def _sweep_fixpoint(
     while True:
         new = sweep(chi)
         it += 1
-        changed = bool(torch.any(new != chi))
+        changed = _moved(new, chi)
         chi = new
         if not changed or (max_sweeps is not None and it >= max_sweeps):
             return chi, it
@@ -535,6 +729,7 @@ def _packed_edge_fixpoint(
     chi0: torch.Tensor | None = None,
     *,
     jacobi: bool = True,
+    shards: list | None = None,
 ) -> tuple[torch.Tensor, int]:
     """Shared driver of the packed-state edge-list engines.
 
@@ -544,20 +739,55 @@ def _packed_edge_fixpoint(
     Gauss–Seidel (``jacobi=False``): operators apply sequentially, each
     reading the freshly-shrunk chi, in the reference's order.  Returns
     (bool chi, sweeps), unpacked once after the fixpoint.
+
+    ``shards`` (Jacobi only) splits chi's words into column shards, each a
+    ``(device, blocks, words)`` triple (:func:`_column_shards`): shard k's
+    words live on its device, where its shrink masks and copy step run
+    (both are column-local), and ``propagate(frontier, m, blocks)`` returns
+    the shard's ``y`` words.  The one cross-device copy of a sweep is the
+    frontier, replicated whole onto every shard's device
+    (:func:`_replicated_frontier`).
     """
     n = ops.init.shape[-1]
     n_mats = len(ops.mat_rhs)
 
+    def jacobi_step(chi_p, frontier, y_of, tables):
+        shrink = None
+        for m in range(n_mats):
+            pv = _per_var_mask_packed(y_of(frontier, m), m, tables)
+            shrink = pv if shrink is None else torch.bitwise_and(shrink, pv)
+        if shrink is not None:
+            chi_p = torch.bitwise_and(chi_p, shrink)
+        return _apply_copies_packed(chi_p, tables)
+
+    if shards is not None:
+        start = _packed_start(ops, chi0)
+        home = start.device
+        tables = [_tables_on(ops, dev) for dev, _, _ in shards]
+        y_of = [
+            lambda f, m, blocks=blocks: propagate(f, m, blocks)
+            for _, blocks, _ in shards
+        ]
+
+        def sweep_shards(parts: tuple) -> tuple:
+            frontier = _replicated_frontier(parts, [d for d, _, _ in shards])
+            return tuple(
+                jacobi_step(p, f, y, t)
+                for p, f, y, t in zip(parts, frontier, y_of, tables)
+            )
+
+        parts, it = _sweep_fixpoint(
+            sweep_shards,
+            tuple(start[:, words].to(dev) for dev, _, words in shards),
+            max_sweeps,
+        )
+        chi_p = torch.cat([p.to(home) for p in parts], dim=1)
+        return bitops.unpack(chi_p, n), it
+
     if jacobi:
 
         def sweep(chi_p: torch.Tensor) -> torch.Tensor:
-            shrink = None
-            for m in range(n_mats):
-                pv = _per_var_mask_packed(propagate(chi_p, m), m, ops)
-                shrink = pv if shrink is None else torch.bitwise_and(shrink, pv)
-            if shrink is not None:
-                chi_p = torch.bitwise_and(chi_p, shrink)
-            return _apply_copies_packed(chi_p, ops)
+            return jacobi_step(chi_p, chi_p, propagate, ops)
 
     else:
 
@@ -601,6 +831,118 @@ def solve_sparse(
 
     return _packed_edge_fixpoint(
         propagate, ops, max_sweeps, chi0, jacobi=(mode != "gs")
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class _Tables:
+    """The index tables of :class:`Operands` that the shrink mask and the
+    copy step read, copied onto one shard's device."""
+
+    mat_rhs: tuple
+    mat_table: tuple
+    copy_rhs: torch.Tensor
+    var_copy: torch.Tensor
+
+
+def _tables_on(ops: Operands, device):
+    """The inequality and copy tables a shard's column-local steps read,
+    on ``device`` (``ops`` itself where they already live there)."""
+    if device == ops.copy_rhs.device:
+        return ops
+    return _Tables(
+        mat_rhs=tuple(t.to(device) for t in ops.mat_rhs),
+        mat_table=tuple(t.to(device) for t in ops.mat_table),
+        copy_rhs=ops.copy_rhs.to(device),
+        var_copy=ops.var_copy.to(device),
+    )
+
+
+def _replicated_frontier(parts: tuple, devices: list) -> list:
+    """Replicate the packed chi words across the mesh: the whole frontier
+    on each shard's device, from the column shards ``parts``.  One
+    ``n/8``-byte copy a device serves every operator of a Jacobi sweep;
+    shards on one device share one copy."""
+    whole: dict = {}
+    for dev in devices:
+        if dev not in whole:
+            whole[dev] = torch.cat([p.to(dev) for p in parts], dim=1)
+    return [whole[dev] for dev in devices]
+
+
+def _column_shards(n_blocks: int, nlw: int, mesh) -> list:
+    """The column shards of chi over ``mesh``: ``(device, blocks, words)``
+    per mesh position that holds a block, in block order (blocks placed
+    as :func:`_block_devices` places them, ``nlw`` words a block)."""
+    shards = []
+    for k, dev in enumerate(mesh.devices):
+        blocks = [b for b in range(n_blocks)
+                  if _block_shard(b, n_blocks, mesh.size) == k]
+        if blocks:
+            shards.append((dev, range(blocks[0], blocks[-1] + 1),
+                           slice(blocks[0] * nlw, (blocks[-1] + 1) * nlw)))
+    return shards
+
+
+def solve_partitioned(
+    ops: Operands, *, max_sweeps: int | None = None,
+    chi0: torch.Tensor | None = None, mesh=None,
+) -> tuple[torch.Tensor, int]:
+    """Vertex-cut partitioned engine: Jacobi sweeps over destination blocks.
+
+    Edges are pre-partitioned by destination block
+    (:func:`make_partitioned_operands`), so every segmented OR is
+    block-local and emits the block's packed words ``[V, n_local / 32]``
+    directly; the block size is a 32-multiple, so block words concatenate
+    into the global word order.  A block's reduce is one
+    :func:`repro_torch.kernels.segsum.kernel.segor_blocks` call over its
+    segmented-OR layout (on a card, always the CUDA kernel: ``n_local``
+    destinations, the whole ``n_pad``-source frontier), or the word-wise
+    plain torch reduce over the CPU's flat ``[W, Eb]`` blocks.
+
+    Without ``mesh`` every block runs on the operands' device.  With
+    ``mesh`` (a :class:`repro_torch.distributed.ctx.NodeMesh`; the
+    operands built over it), chi's columns split into the mesh's shards,
+    block w's columns on block w's device, where its reduces, shrink masks
+    and copy step run; the only cross-device traffic of a sweep is
+    replicating the packed chi words, plus the host's one convergence
+    read.  Same fixpoint as the other engines.  Returns (bool chi ``[V,
+    n_pad]``, sweeps).
+    """
+    if not ops.partitioned:
+        raise ValueError("solve_partitioned needs partitioned operands "
+                         "(make_partitioned_operands)")
+    v, n = ops.init.shape
+    w = ops.n_blocks
+    n_local = n // w if w else n
+    if n_local % bitops.WORD:
+        raise ValueError(
+            "partitioned operands need 32-aligned blocks "
+            f"(n={n}, n_blocks={w}); build them via make_partitioned_operands"
+        )
+
+    def block_words(frontier_p: torch.Tensor, m: int, b: int) -> torch.Tensor:
+        if ops.part_seg is not None:
+            src_b, dst_b, win = ops.part_seg[m][b]
+            return segsum_kernel.segor_blocks(
+                frontier_p, src_b, dst_b, win,
+                num_segments=n_local, num_sources=n,
+            )
+        msgs = _edge_bits(frontier_p, ops.edge_src_b[m][b])  # [V, Eb]
+        # pad rows (dst = n_local) dropped by the segment reduce
+        return segsum_ref.segor_words(msgs, ops.edge_dst_b[m][b], n_local)
+
+    def propagate_blocks(frontier_p: torch.Tensor, m: int, blocks) -> torch.Tensor:
+        return torch.cat([block_words(frontier_p, m, b) for b in blocks], dim=1)
+
+    if mesh is None or not w:
+        return _packed_edge_fixpoint(
+            lambda f, m: propagate_blocks(f, m, range(w)), ops, max_sweeps,
+            chi0, jacobi=True,
+        )
+    return _packed_edge_fixpoint(
+        propagate_blocks, ops, max_sweeps, chi0, jacobi=True,
+        shards=_column_shards(w, n_local // bitops.WORD, mesh),
     )
 
 
@@ -871,7 +1213,7 @@ def _bit_product(
 # --------------------------------------------------------------------- #
 # high-level API
 # --------------------------------------------------------------------- #
-EDGE_ENGINES = ("sparse", "jacobi_packed")
+EDGE_ENGINES = ("sparse", "jacobi_packed", "partitioned")
 DENSE_TIER_ENGINES = ("dense", "packed", "packed_fused")
 ENGINES = DENSE_TIER_ENGINES + EDGE_ENGINES
 
@@ -893,6 +1235,7 @@ def largest_dual_simulation(
     *,
     engine: str = "sparse",
     device=DEFAULT_DEVICE,
+    n_blocks: int = 4,
 ) -> tuple[np.ndarray, int]:
     """Largest dual simulation between ``pattern`` and ``db`` (Prop. 1).
 
@@ -914,7 +1257,8 @@ def largest_dual_simulation(
                 out[node] = chi[seen[f"v{node}"]]
         return out
 
-    chi, it = solve_compiled(c, db, engine=engine, device=device)
+    chi, it = solve_compiled(c, db, engine=engine, device=device,
+                             n_blocks=n_blocks)
     return reorder(chi), it
 
 
@@ -925,15 +1269,18 @@ def solve_compiled(
     engine: str = "sparse",
     chi0: np.ndarray | None = None,
     device=DEFAULT_DEVICE,
+    n_blocks: int = 4,
 ) -> tuple[np.ndarray, int]:
     """Solve a compiled SOI with the chosen engine; returns (chi, iters).
 
     Engines: ``dense``, ``packed``, ``packed_fused`` (bit-packed chi end to
     end through the fused ``bitmm_apply``), ``sparse`` (Gauss–Seidel),
-    ``jacobi_packed`` (one frontier per sweep), ``worklist`` (numpy
-    reference, host only).  ``chi0`` warm-starts any other engine from a
-    previous fixpoint (callers are responsible for the re-seeding rule —
-    use :func:`resume_fixpoint` for the safe path).
+    ``jacobi_packed`` (one frontier per sweep), ``partitioned``
+    (destination-partitioned edge blocks over packed chi; ``n_blocks``
+    blocks, node axis padded), ``worklist`` (numpy reference, host only).
+    ``chi0`` warm-starts any other engine from a previous fixpoint (callers
+    are responsible for the re-seeding rule — use :func:`resume_fixpoint`
+    for the safe path).
     """
     if engine == "worklist":
         if chi0 is not None:
@@ -954,6 +1301,14 @@ def solve_compiled(
         chi, it = solve_packed_fused(
             make_packed_operands(c, g, device=device), chi0=chi0
         )
+    elif engine == "partitioned":
+        ops = make_partitioned_operands(c, g, n_blocks, device=device)
+        if chi0 is not None and chi0.shape[-1] != ops.init.shape[-1]:
+            chi0 = torch.nn.functional.pad(
+                chi0, (0, ops.init.shape[-1] - chi0.shape[-1])
+            )
+        chi, it = solve_partitioned(ops, chi0=chi0)
+        chi = chi[:, : g.n_nodes]  # drop block-padding columns
     else:
         chi, it = solve_sparse(
             make_sparse_operands(c, g, device=device),
@@ -971,6 +1326,7 @@ def resume_fixpoint(
     inserted_labels: set[int] | frozenset[int] = frozenset(),
     engine: str = "sparse",
     device=DEFAULT_DEVICE,
+    n_blocks: int = 4,
 ) -> tuple[np.ndarray, int]:
     """Warm-started fixpoint: resume from a previous snapshot's solution.
 
@@ -985,4 +1341,5 @@ def resume_fixpoint(
     chi0 = np.array(chi0, dtype=bool, copy=True)
     if inserted_labels:
         chi0[destabilized_rows(c, set(inserted_labels))] = True
-    return solve_compiled(c, g, engine=engine, chi0=chi0, device=device)
+    return solve_compiled(c, g, engine=engine, chi0=chi0, device=device,
+                          n_blocks=n_blocks)

@@ -90,15 +90,24 @@ class GraphDB:
         cache_capacity: int = 64,
         buckets: Sequence[int] = DEFAULT_BUCKETS,
         device=DEFAULT_DEVICE,
+        mesh=None,
+        n_blocks: int | None = None,
         incremental: bool = True,
     ):
         """``engine`` picks the fixpoint engine ("auto" = cost-based):
-        dense / packed / packed_fused / sparse / jacobi_packed (the first
-        three only on graphs whose ``[n, n]`` plane may be built, see
-        :func:`repro_torch.engine.cost.dense_tier_feasible`).  ``device``
+        dense / packed / packed_fused / sparse / jacobi_packed / partitioned
+        (the first three only on graphs whose ``[n, n]`` plane may be built,
+        see :func:`repro_torch.engine.cost.dense_tier_feasible`).  ``device``
         holds the operands and runs the
         fixpoints: ``"cuda"`` by default, which raises without a card;
-        pass ``device="cpu"`` for the plain torch versions.  ``incremental``
+        pass ``device="cpu"`` for the plain torch versions.  ``mesh`` is a
+        :class:`repro_torch.distributed.ctx.NodeMesh` of ``device``'s type
+        (see :func:`repro_torch.distributed.ctx.node_mesh`) the partitioned
+        engine places its destination blocks and chi's columns over; with a
+        mesh of >= 2 devices, engine="auto" selects "partitioned" once the
+        graph outgrows single-device budgets.  ``n_blocks`` overrides the
+        number of destination blocks (default: one per mesh device, 4
+        without a mesh).  ``incremental``
         enables warm-resume plan maintenance across mutations (DESIGN.md
         Sect. 8); disable it to force every superseded plan cold."""
         if graph is None:
@@ -126,6 +135,8 @@ class GraphDB:
             cache_capacity=cache_capacity,
             buckets=buckets,
             device=device,
+            mesh=mesh,
+            n_blocks=n_blocks,
             incremental=incremental,
         )
 

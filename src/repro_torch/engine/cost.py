@@ -5,13 +5,11 @@ work of each engine the port has and pick the cheapest *feasible* one.  All
 engines compute the same greatest fixpoint, so the choice is purely a
 performance decision — a wrong pick is slow, never incorrect.
 
-:data:`ENGINES` holds the five single-device engines; the JAX package's
-``partitioned`` engine needs a mesh and prices at ``inf`` on one device,
-so single-device choices are the same in both packages.
+:data:`ENGINES` holds the six engines, in the JAX package's order.
 
 Per-sweep model (V = SOI variables, n = nodes, M = distinct
 (label, direction) operators, E = total edges touched by the SOI's
-operators):
+operators, W = devices in the mesh):
 
 * ``dense`` — M boolean products: ``V * n * n * M`` elements at
   ``c_dense``.  Infeasible when the stacked ``bool[M, n, n]`` adjacency
@@ -28,8 +26,18 @@ operators):
   BYTES MOVED: per sweep the engine streams ``E * (8 + V)`` bytes of edge
   ids + gathered frontier messages, and ``3 * M * V * n/8`` bytes of packed
   ``y`` words through the per-variable AND (write + read + chi fold), plus
-  M per-operator dispatch overheads.  Always feasible.  ``jacobi_packed``
-  pays a ~2x sweep-count inflation over Gauss–Seidel.
+  M per-operator dispatch overheads.  Always feasible on one device.
+  Under Gauss–Seidel every operator re-gathers the freshly-updated packed
+  chi, so on a mesh it pays M packed-chi copies (``M * V * n/8`` bytes)
+  per sweep; ``jacobi_packed`` reads ONE packed frontier copy per sweep
+  but pays a ~2x sweep-count inflation over Gauss–Seidel.
+* ``partitioned`` — jacobi_packed with destination-partitioned edge
+  blocks: compute divides across the W devices, cross-device traffic stays
+  the one packed frontier copy.  Needs a mesh (infeasible at W = 1, where
+  it only adds block padding over jacobi_packed).
+
+Communication terms enter only when ``n_devices > 1``: on one device the
+model reduces to the single-device model exactly.
 
 ``backend`` is the device type the plan runs on; as in the JAX package,
 ``"cpu"`` takes the CPU prices and any other backend (the port's
@@ -64,6 +72,7 @@ PACKED_LAUNCH = 65536.0  # per-operator kernel launch overhead
 C_SPARSE = 4.0  # per edge message (admission envelope only)
 C_APPLY = 0.5  # per chi element per operator (admission envelope only)
 C_SEGOR_BYTE = 1.0  # per byte moved through the segmented-OR sweep
+C_COMM = 8.0  # per byte of cross-device collective traffic
 JACOBI_SWEEP_FACTOR = 2.0  # Jacobi needs ~2x the sweeps of Gauss–Seidel
 DENSE_MAX_BYTES = 2 << 30  # stacked bool[M, n, n] adjacency budget
 PACKED_MAX_BYTES = 2 << 30
@@ -113,6 +122,7 @@ class CostModel:
     c_sparse: float  # per edge message (admission envelope)
     c_apply: float  # per chi element per operator (admission envelope)
     c_segor_byte: float  # per byte through the segmented-OR sweep
+    c_comm: float  # per byte of cross-device collective traffic
     c_dispatch: float  # per-operator per-sweep fixed overhead
     trace_cost: float  # fixed cost of building a plan cold
     patch_cost_per_edge: float  # host-side rebuild of touched operators
@@ -129,8 +139,10 @@ class CostModel:
         measured kernel launch per operator, the fused engine the same on
         an accelerator but only a dispatch on the CPU; ``c_segor_byte = 1 /
         stream``, ``c_sparse = 12 / stream``, ``c_apply = 0.375 / stream``,
-        ``patch_cost_per_edge = 64 / stream``, the measured dispatch
-        overhead and the measured cold-build latency."""
+        ``patch_cost_per_edge = 64 / stream``, ``c_comm`` the reciprocal
+        of the probed collective rate (``4 / stream`` below 2 devices,
+        where no collective is probed), the measured dispatch overhead and
+        the measured cold-build latency."""
         stream = spec.stream_bytes_per_s
         cpu = spec.backend == "cpu"
         shipping = 1.0 / spec.packed_words_per_s
@@ -147,6 +159,11 @@ class CostModel:
             c_sparse=12.0 / stream,
             c_apply=0.375 / stream,
             c_segor_byte=1.0 / stream,
+            c_comm=(
+                1.0 / spec.collective_bytes_per_s
+                if spec.collective_bytes_per_s
+                else 4.0 / stream
+            ),
             c_dispatch=spec.dispatch_s,
             trace_cost=spec.trace_s,
             patch_cost_per_edge=64.0 / stream,
@@ -166,6 +183,7 @@ HAND_TUNED = CostModel(
     c_sparse=C_SPARSE,
     c_apply=C_APPLY,
     c_segor_byte=C_SEGOR_BYTE,
+    c_comm=C_COMM,
     c_dispatch=0.0,  # the arb-unit envelope never priced per-op overhead
     trace_cost=TRACE_COST,
     patch_cost_per_edge=PATCH_COST_PER_EDGE,
@@ -229,14 +247,17 @@ def estimate_costs(
     c: CompiledSOI,
     *,
     backend: str = "cuda",
+    n_devices: int = 1,
     spec: MachineSpec | None = None,
     model: CostModel | None = None,
 ) -> dict[str, float]:
     """Per-sweep model cost of every engine (``inf`` when infeasible).
 
     ``backend`` is the device type the plan runs on (``"cuda"`` or
-    ``"cpu"``); it selects the persisted machine spec.  ``spec`` / ``model``
-    select the calibration (see :func:`resolve_model`).
+    ``"cpu"``); it selects the persisted machine spec.  ``n_devices`` is
+    the mesh size the partitioned engine would run on: it divides that
+    engine's compute and switches the communication terms on.  ``spec`` /
+    ``model`` select the calibration (see :func:`resolve_model`).
     """
     mdl = resolve_model(spec, model, backend)
     v, m, e = _soi_stats(g, c)
@@ -252,6 +273,11 @@ def estimate_costs(
     c_packed = mdl.c_packed_interpret if cpu else mdl.c_packed
     c_fused = mdl.c_packed_fused_cpu if cpu else mdl.c_packed_fused
     sweep = segor_sweep_cost(v, n, m, e, mdl)
+    multi = n_devices > 1
+    # Gauss–Seidel re-gathers the packed chi per operator: M packed-chi
+    # copies (n/8 bytes each) per sweep; Jacobi reads one
+    sparse_comm = m * v * (n / 8.0) * mdl.c_comm if multi else 0.0
+    bcast_comm = v * (n / 8.0) * mdl.c_comm if multi else 0.0
     inf = float("inf")
     return {
         "dense": (
@@ -266,8 +292,13 @@ def estimate_costs(
             v * n * n_words * m * c_fused + m * mdl.fused_launch
             if packed_ok else inf
         ),
-        "sparse": sweep,
-        "jacobi_packed": JACOBI_SWEEP_FACTOR * sweep,
+        "sparse": sweep + sparse_comm,
+        "jacobi_packed": JACOBI_SWEEP_FACTOR * (sweep + bcast_comm),
+        # no mesh: pure block-padding overhead over jacobi_packed
+        "partitioned": (
+            JACOBI_SWEEP_FACTOR * (sweep / n_devices + bcast_comm)
+            if multi else inf
+        ),
     }
 
 
@@ -329,6 +360,7 @@ def resume_decision(
     delta_edges: int,
     last_sweeps: int | None = None,
     backend: str = "cuda",
+    n_devices: int = 1,
     spec: MachineSpec | None = None,
     model: CostModel | None = None,
 ) -> ResumeDecision:
@@ -341,12 +373,14 @@ def resume_decision(
     purely a latency call.
     """
     mdl = resolve_model(spec, model, backend)
-    costs = estimate_costs(g, c, backend=backend, model=mdl)
+    costs = estimate_costs(
+        g, c, backend=backend, n_devices=n_devices, model=mdl
+    )
     per_sweep = costs[engine]
     if per_sweep == float("inf"):
         # the plan exists and runs with this engine whatever the model's
-        # feasibility gate says: price its sweeps with the always-finite
-        # sparse estimate instead
+        # feasibility gate says (e.g. partitioned pinned on one device);
+        # price its sweeps with the always-finite sparse estimate instead
         per_sweep = costs["sparse"]
     _, _, e = _soi_stats(g, c)
     frac = delta_edges / max(e, 1)
@@ -370,13 +404,16 @@ def choose_engine(
     c: CompiledSOI,
     *,
     backend: str = "cuda",
+    n_devices: int = 1,
     allow: tuple[str, ...] = ENGINES,
     spec: MachineSpec | None = None,
     model: CostModel | None = None,
 ) -> CostEstimate:
-    """Pick the cheapest feasible engine for this (SOI, graph) pair."""
+    """Pick the cheapest feasible engine for this (SOI, graph, mesh) triple."""
     mdl = resolve_model(spec, model, backend)
-    costs = estimate_costs(g, c, backend=backend, model=mdl)
+    costs = estimate_costs(
+        g, c, backend=backend, n_devices=n_devices, model=mdl
+    )
     feasible = {k: v for k, v in costs.items() if k in allow and v != float("inf")}
     if not feasible:  # sparse is always feasible unless excluded by `allow`
         raise ValueError(f"no feasible engine among {allow}")
@@ -384,7 +421,7 @@ def choose_engine(
     v, m, e = _soi_stats(g, c)
     reason = (
         f"{best}: cost {feasible[best]:.3g}{mdl.unit} over "
-        f"{{V={v}, n={g.n_nodes}, M={m}, E={e}}} "
+        f"{{V={v}, n={g.n_nodes}, M={m}, E={e}, W={n_devices}}} "
         f"[{mdl.source}] (candidates: "
         + ", ".join(f"{k}={costs[k]:.3g}" for k in costs)
         + ")"

@@ -126,6 +126,8 @@ class Engine:
         cache_capacity: int = 64,
         buckets: Sequence[int] = DEFAULT_BUCKETS,
         device=DEFAULT_DEVICE,
+        mesh=None,
+        n_blocks: int | None = None,
         incremental: bool = True,
         spec: machine_mod.MachineSpec | None = None,
     ):
@@ -133,9 +135,17 @@ class Engine:
 
         ``device`` holds every plan's operands and runs every fixpoint
         (``"cuda"`` by default; raises without a card unless ``"cpu"`` is
-        asked for).  ``incremental`` enables warm-resume maintenance of
-        superseded plans across shape-stable mutations (DESIGN.md Sect. 8);
-        with it off, every mutation invalidates cold, as before.
+        asked for).  ``mesh`` is a
+        :class:`repro_torch.distributed.ctx.NodeMesh` of ``device``'s type
+        (see :func:`repro_torch.distributed.ctx.node_mesh`): the
+        partitioned engine places its destination blocks and chi's columns
+        over it, and the cost model sees its size, so ``engine="auto"`` can
+        pick ``"partitioned"`` once the graph outgrows single-device
+        budgets.  ``n_blocks`` is the partitioned engine's block count
+        (default: the mesh size, or 4 without a mesh).  ``incremental``
+        enables warm-resume maintenance of superseded plans across
+        shape-stable mutations (DESIGN.md Sect. 8); with it off, every
+        mutation invalidates cold, as before.
 
         ``spec`` pins the machine calibration every cost decision (engine
         auto-selection, resume-vs-cold, serving admission) prices with;
@@ -151,6 +161,17 @@ class Engine:
         self.engine_pref = engine
         self.buckets = tuple(sorted(buckets))
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"a mesh of {mesh.device_type} devices cannot "
+                             f"serve an engine on {self.device}")
+        self.mesh = mesh
+        self.n_devices = mesh.size if mesh is not None else 1
+        # without a mesh the partitioned engine still runs (one device,
+        # block-structured); 4 blocks keeps the layout non-degenerate
+        self.n_blocks = (
+            n_blocks if n_blocks is not None
+            else (self.n_devices if mesh is not None else 4)
+        )
         # resolved once so introspection (`eng.spec`) shows the calibration
         # actually in force; None means the hand-tuned fallback model
         self.spec = (
@@ -173,8 +194,8 @@ class Engine:
             )
         self._prev_db: Graph = self.db  # adjacency retention window
         self.incremental = incremental
-        # superseded-but-resumable plans: (template key, bucket, engine)
-        # -> (plan, composed delta from its snapshot to now)
+        # superseded-but-resumable plans: (template key, bucket, engine,
+        # n_blocks, mesh) -> (plan, composed delta from its snapshot to now)
         self._resumable: dict = {}
         # one lock for every serving counter below: updates that belong to
         # one event (a microbatch's count + its engine tally) commit
@@ -316,7 +337,12 @@ class Engine:
             if isinstance(instance_or_template, TemplateInstance)
             else instance_or_template
         )
-        key = (template.key, self.fingerprint, bucket, self.engine_pref)
+        key = (
+            template.key, self.fingerprint, bucket, self.engine_pref,
+            # an Engine's mesh is fixed, but keys stay unambiguous if a
+            # cache is ever shared
+            self.n_blocks, self.mesh,
+        )
         hit = key in self.cache
         plan = self.cache.get_or_build(
             key, lambda: self._build_or_resume(template, bucket, key)
@@ -341,6 +367,7 @@ class Engine:
                 delta_edges=delta.n_changes,
                 last_sweeps=plan.last_sweeps,
                 backend=self.device.type,
+                n_devices=self.n_devices,
                 spec=self.spec,
             )
             if decision.resume:
@@ -366,6 +393,8 @@ class Engine:
             node_index=self._node_index,
             device=self.device,
             adj_cache=self._adj_cache,
+            mesh=self.mesh,
+            n_blocks=self.n_blocks,
             spec=self.spec,
             # chi memoization only pays off when the graph can mutate: a
             # plan over a plain immutable Graph never stages warm starts

@@ -38,6 +38,15 @@ from .cache import BoundedDict
 from .template import QueryTemplate, slot_index
 
 
+def _widen(x: torch.Tensor, width: int) -> torch.Tensor:
+    """``x`` with zero columns (or words) appended up to ``width``: the
+    partitioned layout's node axis is padded past the graph's, and its pad
+    columns are dead."""
+    if x.shape[-1] == width:
+        return x
+    return torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+
+
 @dataclasses.dataclass
 class PlanMetrics:
     """Observable counters of one plan."""
@@ -62,6 +71,8 @@ class CompiledPlan:
         node_index: dict[str, int] | None = None,
         device=DEFAULT_DEVICE,
         adj_cache: dict | None = None,
+        mesh=None,
+        n_blocks: int | None = None,
         incremental: bool = True,
         spec=None,
     ):
@@ -70,8 +81,12 @@ class CompiledPlan:
         ``engine`` is ``"auto"`` (cost model) or one of
         :data:`repro_torch.engine.cost.ENGINES`.  ``device`` holds the
         operands and runs the
-        fixpoint (``"cuda"`` by default; raises without a card).  ``spec``
-        is the :class:`repro_torch.engine.machine.MachineSpec` the
+        fixpoint (``"cuda"`` by default; raises without a card).  ``mesh``
+        (a :class:`repro_torch.distributed.ctx.NodeMesh` of ``device``'s
+        type) is what the partitioned engine places its ``n_blocks``
+        destination blocks (default: one per mesh device) and chi's columns
+        over; the cost model sees its size.  ``spec`` is the
+        :class:`repro_torch.engine.machine.MachineSpec` the
         ``engine="auto"`` selection prices with.
         """
         t0 = time.perf_counter()
@@ -79,6 +94,9 @@ class CompiledPlan:
         self.template = template
         self.batch = batch
         self.n_nodes = db.n_nodes
+        self.mesh = mesh
+        n_devices = mesh.size if mesh is not None else 1
+        self.n_blocks = n_blocks if n_blocks is not None else n_devices
         self.incremental = incremental
         if node_index is None:
             node_index = db.node_index() if db.node_names is not None else {}
@@ -123,7 +141,8 @@ class CompiledPlan:
         self.cost: cost_mod.CostEstimate | None = None
         if engine == "auto":
             self.cost = cost_mod.choose_engine(
-                db, self.csoi, backend=self.device.type, spec=spec
+                db, self.csoi, backend=self.device.type, n_devices=n_devices,
+                spec=spec,
             )
             engine = self.cost.engine
         if engine not in cost_mod.ENGINES:
@@ -134,13 +153,20 @@ class CompiledPlan:
         self._packed_chi = engine not in ("dense", "packed")
 
         self.metrics = PlanMetrics()
-        if engine == "dense":
-            make = dualsim.make_dense_operands
-        elif engine in ("packed", "packed_fused"):
-            make = dualsim.make_packed_operands
+        if engine == "partitioned":
+            # block-major placement: block w's edges on block w's device
+            self.operands = dualsim.make_partitioned_operands(
+                self.csoi, db, self.n_blocks, adj_cache, device=self.device,
+                mesh=mesh,
+            )
         else:
-            make = dualsim.make_sparse_operands
-        self.operands = make(self.csoi, db, adj_cache, device=self.device)
+            if engine == "dense":
+                make = dualsim.make_dense_operands
+            elif engine in ("packed", "packed_fused"):
+                make = dualsim.make_packed_operands
+            else:
+                make = dualsim.make_sparse_operands
+            self.operands = make(self.csoi, db, adj_cache, device=self.device)
         self.metrics.operand_builds += 1
         self._adj_cache = adj_cache
         # incremental maintenance state (DESIGN.md Sect. 8): the last solved
@@ -195,10 +221,11 @@ class CompiledPlan:
         init = self.operands.init_packed if packed else self.operands.init
         if const_rows.shape[0]:
             init = init.index_put(
-                (self._scatter,), init[self._scatter] & const_rows
+                (self._scatter,),
+                init[self._scatter] & _widen(const_rows, init.shape[-1]),
             )
         if chi0 is not None:
-            init = init & chi0
+            init = init & _widen(chi0, init.shape[-1])
         ops = dataclasses.replace(
             self.operands, **{"init_packed" if packed else "init": init}
         )
@@ -208,6 +235,9 @@ class CompiledPlan:
             return dualsim.solve_packed(ops)
         if self.engine == "packed_fused":
             return dualsim.solve_packed_fused(ops)
+        if self.engine == "partitioned":
+            chi, sweeps = dualsim.solve_partitioned(ops, mesh=self.mesh)
+            return chi[:, : self.n_nodes], sweeps  # drop block padding
         return dualsim.solve_sparse(
             ops, mode="jacobi_packed" if self.engine == "jacobi_packed" else "gs"
         )
@@ -283,6 +313,7 @@ class CompiledPlan:
             db,
             delta.touched_labels(),
             adj_cache=cache,
+            mesh=self.mesh,  # rebuilt blocks go back to their devices
         )
         grow = dualsim.destabilized_rows(self.csoi, delta.inserted_labels())
         self._warm = {}

@@ -24,8 +24,13 @@ or ``cpu`` (the plain torch versions)::
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --mutate
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 64 --batch 16
 
-The partitioned engine and the mesh flags (``--devices``) of the JAX
-package's driver are not in the port yet.
+With ``--engine partitioned --devices N`` every replica's fixpoint splits
+chi's node axis over a mesh of N devices (DESIGN.md Sect. 7): N simulated
+shards of the host with ``--device cpu``, the first N cards with
+``--device cuda`` (which raises if there are fewer)::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --engine partitioned --devices 4 --mutate
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ import numpy as np
 
 from repro_torch.data import synth
 from repro_torch.db import GraphDB
+from repro_torch.distributed import ctx as dctx
 from repro_torch.engine.cost import ENGINES
 from repro_torch.serve import AsyncServer
 
@@ -126,11 +132,9 @@ async def _serve(args, db: GraphDB, requests: list[str], churn) -> None:
             )
 
 
-def main() -> None:
+def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(
         description="Serve template queries through repro_torch.serve.",
-        epilog="Not in the port yet: --engine partitioned and the mesh "
-               "flag --devices of the JAX package's driver.",
     )
     ap.add_argument("--batch", type=int, default=8,
                     help="max requests per dispatched microbatch")
@@ -151,16 +155,24 @@ def main() -> None:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where operands live and fixpoints run; 'cuda' "
                          "raises without a card")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="split over a mesh of this many devices (simulated "
+                         "host shards with --device cpu, cards with --device "
+                         "cuda); 0 = no mesh")
     ap.add_argument("--mutate", action="store_true",
                     help="mutate mid-stream: a shape-stable delete/re-insert "
                          "churn (warm-resumed plans) plus a dictionary-"
                          "growing insert (cold invalidation)")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
+    mesh = None
+    if args.devices > 1:
+        mesh = dctx.node_mesh(args.devices, device=args.device)
     db = GraphDB(synth.lubm_like(n_universities=8, seed=0),
-                 engine=args.engine, device=args.device)
+                 engine=args.engine, device=args.device, mesh=mesh)
     print(f"database: {db.n_triples} triples / {db.n_nodes} nodes on "
-          f"{args.device}")
+          f"{args.device}"
+          + (f", mesh of {args.devices} devices" if mesh is not None else ""))
 
     unis = [n for n in db.graph.node_names if n.startswith("Univ")]
     rng = np.random.default_rng(0)

@@ -121,8 +121,9 @@ class ReplicaRouter:
     """Route prepared batches across N engine replicas of one database.
 
     Replicas inherit the database's engine configuration (engine
-    preference, buckets, device, incremental maintenance) so a routed request
-    behaves exactly like ``db.query`` modulo which plan cache warms up.
+    preference, buckets, device, mesh and block count, incremental
+    maintenance) so a routed request behaves exactly like ``db.query``
+    modulo which plan cache warms up.
     When ``fault_plan`` is set, each replica engine gets the plan's bound
     request-level hooks and the router consults its replica-level hooks —
     all zero-cost no-ops while the plan is disarmed.
@@ -190,6 +191,8 @@ class ReplicaRouter:
             cache_capacity=proto.cache.capacity,
             buckets=proto.buckets,
             device=proto.device,
+            mesh=proto.mesh,
+            n_blocks=proto.n_blocks,
             incremental=proto.incremental,
         )
 

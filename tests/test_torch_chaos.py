@@ -342,23 +342,33 @@ def test_server_watchdog_times_out_wedged_attempt(db):
 
 
 def test_server_watchdog_overrun_retries_to_ok(db):
+    """The slow replica's attempt overruns the watchdog and is retried on
+    the fast one.  The budget comes from the server's own warm service
+    times on this machine (a fixed 150 ms let the fast replica's retry
+    overrun too on a loaded host), and the slow replica's stall is set
+    well above it."""
     text = MEMBERS_OF.format(uni="Univ0")
-    plan = FaultPlan().slow_replica("r0", extra_s=0.5)
+    plan = FaultPlan()
 
     async def go():
         async with AsyncServer(
             db, replicas=2, fault_plan=plan, max_retries=2, max_batch=2,
             max_delay_ms=1.0, default_deadline_ms=10_000.0,
         ) as server:
-            for _ in range(6):
-                await server.submit(text)
-            server.watchdog_budget = 0.150  # post-warmup (see above)
+            warmup = [await server.submit(text) for _ in range(6)]
+            # the first batch on each replica builds its plan: the rest
+            # are the warm service this budget is a multiple of
+            warm_s = max(r.service_ms for r in warmup[2:]) / 1e3
+            budget = max(0.150, 10.0 * warm_s)
+            server.watchdog_budget = budget  # post-warmup (see above)
+            plan.slow_replica("r0", extra_s=4.0 * budget)
             plan.arm()
             results = [await server.submit(text) for _ in range(8)]
             snap = server.metrics.snapshot()
-        return results, snap
+        return results, snap, budget
 
-    results, snap = asyncio.run(go())
+    results, snap, budget = asyncio.run(go())
+    assert budget >= 0.150
     assert all(r.ok for r in results)  # overruns retried on the fast replica
     assert snap.watchdog_overruns >= 1 and snap.retries >= 1
     assert snap.submitted == snap.resolved

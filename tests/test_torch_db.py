@@ -49,7 +49,7 @@ def _same_result(rs, ref):
     assert rs.stats.per_edge_survivors == ref.stats.per_edge_survivors
 
 
-@pytest.mark.parametrize("engine", ["sparse", "jacobi_packed"])
+@pytest.mark.parametrize("engine", ["sparse", "jacobi_packed", "partitioned"])
 @pytest.mark.parametrize("q", range(len(QUERIES)))
 def test_query_matches_reference(engine, q):
     db, ref = _dbs(engine)
@@ -71,7 +71,7 @@ def test_auto_picks_sparse_and_matches_reference():
         assert np.array_equal(rs.survivor_mask, ref.query(text).survivor_mask)
 
 
-@pytest.mark.parametrize("engine", ["sparse", "jacobi_packed"])
+@pytest.mark.parametrize("engine", ["sparse", "jacobi_packed", "partitioned"])
 def test_execute_many_microbatches_like_reference(engine):
     db, ref = _dbs(engine, n_universities=6)
     qs = [MEMBERS_OF.format(uni=f"Univ{u}") for u in (0, 1, 2, 3, 4, 0)]
@@ -97,7 +97,7 @@ def test_session_submit_matches_reference():
     _same_result(db.query(builder), ref.query(MEMBERS_OF.format(uni="Univ2")))
 
 
-@pytest.mark.parametrize("engine", ["sparse", "jacobi_packed"])
+@pytest.mark.parametrize("engine", ["sparse", "jacobi_packed", "partitioned"])
 def test_mutation_resumes_like_reference(engine):
     """Delete + re-insert of one triple: the superseded plan is patched and
     warm-resumed in both packages, with the same answers and counters, and
@@ -159,7 +159,7 @@ def test_cost_model_prices_edge_engines_like_reference(text):
     rc = ref_soi.compile_soi(ref_soi.build_soi(ref_sparql.parse(text)), rg)
     got = cost.estimate_costs(g, c, backend="cpu")
     want = ref_cost.estimate_costs(rg, rc, backend="cpu")
-    assert got == {k: want[k] for k in cost.ENGINES}
+    assert got == want  # all six engines, partitioned included
     assert cost.choose_engine(g, c, backend="cpu").engine == "sparse"
     for delta in (1, 50, 10_000):
         a = cost.resume_decision(g, c, engine="sparse", delta_edges=delta,

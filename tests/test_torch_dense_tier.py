@@ -190,9 +190,9 @@ def test_largest_dual_simulation_matches_reference():
 # --------------------------------------------------------------------- #
 @pytest.mark.parametrize("seed", [0, 1, 2, 3, 7, 42])
 def test_cross_engine_equivalence_replay_all_engines(seed):
-    """All five port engines reach the worklist fixpoint, each in the
-    reference's sweep count for that engine, on the reference's random
-    graph x BGP/AND/OPTIONAL instances."""
+    """All six port engines, in the reference's order, reach the worklist
+    fixpoint, each in the reference's sweep count for that engine, on the
+    reference's random graph x BGP/AND/OPTIONAL instances."""
     rng = np.random.default_rng(seed)
     n_labels = int(rng.integers(1, 4))
     kw = dict(n_nodes=int(rng.integers(3, 40)), n_labels=n_labels,
@@ -202,7 +202,7 @@ def test_cross_engine_equivalence_replay_all_engines(seed):
     c = soi.compile_soi(soi.build_soi(q), g)
     rc = ref_soi.compile_soi(ref_soi.build_soi(_ref_query(q)), rg)
     want, _ = ref_dualsim.solve_worklist(rc, rg)
-    assert dualsim.ENGINES == TIER + dualsim.EDGE_ENGINES
+    assert dualsim.ENGINES == TIER + dualsim.EDGE_ENGINES == ref_cost.ENGINES
     for eng in dualsim.ENGINES:
         chi, it = dualsim.solve_compiled(c, g, engine=eng, device="cpu")
         assert np.array_equal(chi, want), f"{eng} != worklist (seed {seed})"
@@ -409,7 +409,7 @@ def test_cost_model_matches_reference(graph, backends, calibrated):
         got = cost.estimate_costs(g, c, backend=port_backend, spec=spec)
         want = ref_cost.estimate_costs(rg, rc, backend=ref_backend, spec=rspec)
         assert list(got) == list(cost.ENGINES)
-        assert got == {k: want[k] for k in cost.ENGINES}
+        assert got == want  # all six engines, partitioned included
         assert want["partitioned"] == float("inf")  # one device
         assert (cost.choose_engine(g, c, backend=port_backend, spec=spec).engine
                 == ref_cost.choose_engine(rg, rc, backend=ref_backend,
@@ -473,7 +473,7 @@ def test_hand_tuned_card_picks_fused_on_the_block_dense_graph():
     est = cost.choose_engine(g, c, backend="cuda")
     want = ref_cost.estimate_costs(rg, rc, backend="tpu")
     assert est.engine == "packed_fused"
-    assert est.costs == {k: want[k] for k in cost.ENGINES}
+    assert est.costs == want  # all six engines, partitioned included
     assert est.costs["packed_fused"] < est.costs["sparse"]
 
 

@@ -1,7 +1,8 @@
 """Card-only tests of the port (marker ``gpu``): the CUDA kernels (the
 segmented OR, the two packed boolean products and the segment sum) against
-their plain PyTorch versions, the query path on the card against the same
-path on the CPU, and a two-replica ``AsyncServer`` on the card.  A CUDA
+their plain PyTorch versions, the query path on the card (the edge
+engines, the partitioned engine and the dense tier) against the same path
+on the CPU, and a two-replica ``AsyncServer`` on the card.  A CUDA
 kernel has no CPU mode, so without a card
 these skip.  The file imports neither JAX nor the JAX package, so it runs
 where JAX is not installed:
@@ -187,6 +188,85 @@ def test_query_path_on_card_matches_cpu(cuda_device):
         assert a.sweeps == b.sweeps
         for var in a.variables:
             assert np.array_equal(a.binding_mask(var), b.binding_mask(var))
+
+
+@pytest.mark.parametrize("n,n_blocks", [(300, 4), (61, 8), (1000, 3),
+                                         (5000, 2)])
+def test_solve_partitioned_on_card_matches_cpu(cuda_device, n, n_blocks):
+    """The partitioned engine on the card (each block's reduce is one K1
+    launch over n_local destinations and the whole padded frontier)
+    equals the CPU run, chi and sweeps, including block sizes that are not
+    a multiple of K1's 256-node window; the card's operands hold the
+    per-block layout only, and no launch is made but K1's."""
+    from repro_torch.core import dualsim, soi
+
+    g = synth.random_graph(n, 3, 4 * n, seed=n)
+    c = soi.compile_soi(soi.build_soi(sparql.parse(
+        "{ ?a p0 ?b . ?b p1 ?c } OPTIONAL { ?c p2 ?d }")), g)
+    ops = dualsim.make_partitioned_operands(c, g, n_blocks, device=cuda_device)
+    assert ops.part_seg is not None and ops.edge_src_b is None
+    kernels.reset_launches()
+    chi, sweeps = dualsim.solve_partitioned(ops)
+    launches = kernels.launch_counts()
+    assert launches["segor_blocks"] == sweeps * len(c.mats) * n_blocks
+    cpu, cpu_sweeps = dualsim.solve_partitioned(
+        dualsim.make_partitioned_operands(c, g, n_blocks, device="cpu"))
+    assert torch.equal(chi.cpu(), cpu) and sweeps == cpu_sweeps
+    want, _ = dualsim.solve_worklist(c, g)
+    assert np.array_equal(chi[:, :n].cpu().numpy(), want)
+
+
+def test_partitioned_query_path_on_card_matches_cpu(cuda_device):
+    """GraphDB(engine="partitioned") on the card, on a mesh of the card,
+    and on the CPU give the same answers and sweeps, through a
+    delete / re-insert that resumes the plan."""
+    from repro_torch.distributed import ctx
+
+    g = synth.lubm_like(4, seed=0)
+    dbs = [GraphDB(g, engine="partitioned"),
+           GraphDB(g, engine="partitioned", mesh=ctx.node_mesh(1), n_blocks=4),
+           GraphDB(g, engine="partitioned", device="cpu")]
+    queries = [
+        "{ ?d subOrganizationOf Univ%d . ?s memberOf ?d }" % u for u in range(4)
+    ] + [sparql.format_query(synth.lubm_l1_like())]
+    row = g.triples[int(np.flatnonzero(
+        g.triples[:, 1] == g.label_id("memberOf"))[0])]
+    t = (g.node_names[row[0]], g.label_names[row[1]], g.node_names[row[2]])
+    for step in ("cold", "delete", "insert"):
+        if step != "cold":
+            for db in dbs:
+                assert getattr(db, step)([t]) == 1
+        card, mesh, cpu = (db.execute_many(queries) for db in dbs)
+        for a, b, c in zip(card, mesh, cpu):
+            assert np.array_equal(a.survivor_mask, c.survivor_mask)
+            assert np.array_equal(b.survivor_mask, c.survivor_mask)
+            assert a.sweeps == b.sweeps == c.sweeps
+            assert a.engine == c.engine == "partitioned"
+    assert all(db.metrics().plans_resumed >= 2 for db in dbs)
+
+
+def test_bitmm_ops_on_card_match_cpu(cuda_device):
+    """The public packed products launch their kernels on the card and
+    equal the CPU's plain versions, the packed frontier's pad bits
+    ignored."""
+    from repro_torch.kernels.bitmm import ops as bitmm_ops
+
+    chi_p, a_p, flags = _bitmm_case(cuda_device, 48, 1000, 3)
+    x = bitops.unpack(chi_p, 1000)
+    dirty = chi_p.clone()
+    dirty[:, -1] |= -(1 << (1000 % 32))
+    kernels.reset_launches()
+    got = (bitmm_ops.bitmm(x, a_p), bitmm_ops.bitmm_packed(dirty, a_p),
+           bitmm_ops.bitmm_apply(chi_p, a_p, flags))
+    launches = kernels.launch_counts()
+    assert launches["bitmm_packed"] == 2 and launches["bitmm_apply_packed"] == 1
+    cpu = (bitmm_ops.bitmm(x.cpu(), a_p.cpu()),
+           bitmm_ops.bitmm_packed(chi_p.cpu(), a_p.cpu()),
+           bitmm_ops.bitmm_apply(chi_p.cpu(), a_p.cpu(), flags.cpu()))
+    assert torch.equal(got[0].cpu(), cpu[0])
+    assert torch.equal(got[1].cpu(), cpu[1])
+    assert torch.equal(got[2][0].cpu(), cpu[2][0])
+    assert (int(got[2][1]) != 0) == (int(cpu[2][1]) != 0)
 
 
 # --------------------------------------------------------------------- #

@@ -40,6 +40,8 @@ SLICE_MODULES = (
     "repro_torch.launch",
     "repro_torch.launch.serve",
     "repro_torch.kernels.segsum.ops",
+    "repro_torch.kernels.bitmm.ops",
+    "repro_torch.distributed.ctx",
 )
 
 
@@ -50,7 +52,7 @@ def test_every_module_imports_without_jax_or_repro():
         env={**os.environ, "PYTHONPATH": str(REPO / "src")},
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 46
+    assert int(proc.stdout.split()[-1]) >= 48
 
 
 def _imports(path: Path) -> set[str]:
