@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive and check the torch port's query and serving paths on one card.
+"""Drive and check the torch port's query, serving and training paths on one card.
 
     python3 chip_smoke.py [--universities 8000] [--seed 0]
 
@@ -81,7 +81,23 @@ failure fatal:
    live edges: CUDA events, median of 25 calls, L2 flushed before each;
    the host time to enqueue a call; the device time of each CUDA kernel a
    call launches; beside its bound, its plain version and
-   ``torch.sparse.mm`` of the operator's adjacency (``library_ms``).
+   ``torch.sparse.mm`` of the operator's adjacency (``library_ms``);
+7. training and LM serving on the card: (d) ``join.evaluate`` on phase
+   3's corpus, full and pruned by the card's chi, for ``lubm_l0_like`` and
+   the OPTIONAL query, with equal bindings; (a) one train step
+   (``microbatches=2``) of internlm2-1.8b's widths cut to 2 layers, f32,
+   TF32 off, on the card and on the CPU from the same numpy-seeded
+   parameters (loss, gradient norm and every updated parameter within
+   rtol 1e-4, atol 1e-6), and the chunked attention branch against the
+   one-block branch; (b) ``launch.train.main`` on the full 24-layer model,
+   bf16 activations over f32 masters, with a failure injected after the
+   first checkpoint: it resumes, the loss falls, the replayed steps agree,
+   and its step time, tokens/s, model TFLOP/s, peak memory and
+   save/restore seconds are logged, with one more step profiled; (c)
+   prefill then ``decode_step`` at full width (f32: decode logits equal
+   the teacher-forced logits; bf16: prefill ms and decode ms/token).  The
+   launch counts are zeroed before (b) and must stay zero: the LM path
+   reaches no TPU kernel.
 
 The last three lines are the card's name and power limit, a JSON line of
 kernel records, and ``{"ok": true, "device": {...}}``.
@@ -89,6 +105,7 @@ kernel records, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -123,6 +140,20 @@ SERVE_REQUESTS, SERVE_BATCH, SERVE_DEADLINE_MS = 64, 16, 120_000.0
 # the device work of one segor_blocks call, by the names a profiler trace
 # gives it: the zero fill, the transposition and the segmented OR
 SEGOR_KERNELS = ("Memset", "transpose_kernel", "segor_blocks_kernel")
+# phase 7: the LM whose widths run, and launch.train's arguments
+# (the checkpoint directory is added; so is --keep 1: a checkpoint of the
+# full model's f32 state is 22.7 GB, and three kept plus one in flight would
+# not fit a 79 GB disk).  20 steps, not 30: each 22.7 GB save costs ~25 s
+# of the script's time, and 30 steps add one more
+LM_ARCH = "internlm2-1.8b"
+TRAIN_ARGV = ["--arch", LM_ARCH, "--steps", "20", "--batch", "8", "--seq", "1024",
+              "--ckpt-every", "10", "--inject-failure-at", "15", "--keep", "1"]
+H100_BF16_TFLOPS = 989.0  # dense bf16 peak, NVIDIA's data sheet (SXM, 700 W)
+# coarse kinds of CUDA kernels in a profiled LM step, by words of their names
+KERNEL_KINDS = (("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
+                ("reduction", ("reduce",)),
+                ("copy/cat", ("copy", "memcpy", "memset", "catarray")),
+                ("elementwise", ("elementwise",)))
 KERNELS = {
     "segsum": {
         "route": "cuda",
@@ -652,9 +683,11 @@ def phase_cross_checks(graph, runs):
 def time_partitioned_block(ops, n_pad, m, w, states, flush) -> None:
     """K1 on block ``w`` of operator ``m`` of the partitioned microbatch
     plan at each (name, chi) state: bit for bit against its plain version,
-    its time with L2 flushed before each call beside its plain version and
-    the bound (edge ids and windows, the whole frontier and the block's
-    output words, at the card's memory rate)."""
+    its time with L2 flushed before each call beside its plain version, the
+    bound (edge ids and windows, the whole frontier and the block's output
+    words, at the card's memory rate) and ``torch.sparse.mm`` of the
+    block's adjacency (``[n_local, n_pad]`` f32 CSR) against the unpacked
+    frontier, then ``> 0`` (checked equal)."""
     import torch
 
     from repro_torch.core import bitops
@@ -667,10 +700,19 @@ def time_partitioned_block(ops, n_pad, m, w, states, flush) -> None:
     nlw = bitops.packed_width(n_local)
     bytes_moved = g * be * 8 + g * 4 + v * nw_src * 4 + v * nlw * 4
     bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    # the library's yardstick: the block's A^T [local dst, src] as an f32
+    # CSR over its live edge slots, built outside the timing
+    dst = dst_b.reshape(-1).long()
+    lo = (win.long() * 256).repeat_interleave(be)
+    live = (dst < n_local) & (dst >= lo) & (dst < lo + 256)
+    a_t = torch.sparse_coo_tensor(
+        torch.stack([dst[live], src_b.reshape(-1).long()[live]]),
+        torch.ones(int(live.sum()), device=CARD), (n_local, n_pad),
+        check_invariants=True).coalesce().to_sparse_csr()
     log(f"partitioned K1 at the largest block (operator {m}, block {w} of "
         f"{len(ops.part_seg[m])}): V={v}, n_local={n_local}, n_pad={n_pad}, "
-        f"G={g}, BE={be}; bound {bound_ms:.4f} ms ({bytes_moved} bytes at "
-        f"3.35 TB/s)")
+        f"G={g}, BE={be}, {int(live.sum())} live edge slots; bound "
+        f"{bound_ms:.4f} ms ({bytes_moved} bytes at 3.35 TB/s)")
     for state, chi_p in states:
         def call(chi_p=chi_p):
             return kernel.segor_blocks(chi_p, src_b, dst_b, win,
@@ -680,20 +722,30 @@ def time_partitioned_block(ops, n_pad, m, w, states, flush) -> None:
             return ref.segor_blocks_ref(chi_p, src_b, dst_b, win,
                                         num_segments=n_local)
 
+        f_t = bitops.unpack(chi_p, n_pad).T.to(torch.float32).contiguous()
+
+        def library(f_t=f_t):
+            return torch.sparse.mm(a_t, f_t) > 0
+
         got, want = call(), plain()
         if not torch.equal(got, want):
             raise AssertionError(f"partitioned K1 != plain version ({state})")
         if not torch.equal(call(), got):
             raise AssertionError(f"partitioned K1: two launches differ ({state})")
+        if not torch.equal(bitops.pack(library().T), got):
+            raise AssertionError(f"torch.sparse.mm > 0 != partitioned K1 ({state})")
         ms = median_ms(call, flush=flush)
         plain_ms = median_ms(plain, flush=flush)
+        lib_ms = median_ms(library, flush=flush)
         split = device_times(call)
         log(f"  {state}: equal bits (two launches); kernel {ms:.4f} ms with "
-            f"L2 flushed, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms; "
+            f"L2 flushed, plain {plain_ms:.4f} ms, library torch.sparse.mm + "
+            f"> 0 {lib_ms:.4f} ms (equal bits), bound {bound_ms:.4f} ms; "
             "device time per call (L2 not flushed): "
             + ("; ".join(f"{key[:60]} {t:.4f} ms" for key, t in split.items())
                or "not measured (the trace shows no device time)")
             + f"; sum {sum(split.values()):.4f} ms")
+        del f_t
 
 
 def phase_partitioned(graph, runs, jac):
@@ -1776,6 +1828,352 @@ def trace_share(prof, wall: float) -> str:
             f"{k1:.3f}ms")
 
 
+# --------------------------------------------------------------------- #
+# phase 7: training and LM serving on the card
+# --------------------------------------------------------------------- #
+def lm_tree(cfg, seed: int) -> dict:
+    """LM parameters in the JAX package's layout (layers stacked on a
+    leading axis) as numpy: every matrix ``normal / sqrt(fan_in)`` from a
+    seeded generator, norms at one."""
+    import math
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    L, d, f, v = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab
+    hq, hkv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+
+    def dense(shape, fan_in):
+        return rng.standard_normal(shape, dtype=np.float32) / np.float32(math.sqrt(fan_in))
+
+    attn = {"wq": dense((L, d, hq), d), "wk": dense((L, d, hkv), d),
+            "wv": dense((L, d, hkv), d), "wo": dense((L, hq, d), hq)}
+    if cfg.qk_norm:
+        attn["q_norm"] = np.ones((L, cfg.head_dim), np.float32)
+        attn["k_norm"] = np.ones((L, cfg.head_dim), np.float32)
+    return {
+        "embed": dense((v, d), d), "unembed": dense((d, v), d),
+        "ln_f": np.ones(d, np.float32),
+        "layers": {"attn": attn, "ln1": np.ones((L, d), np.float32),
+                   "ln2": np.ones((L, d), np.float32),
+                   "mlp": {"w_gate": dense((L, d, f), d), "w_up": dense((L, d, f), d),
+                           "w_down": dense((L, f, d), f)}},
+    }
+
+
+def max_rel(got, want) -> float:
+    """Largest |got - want| / |want| over the elements where want != 0."""
+    got, want = got.double().cpu(), want.double().cpu()
+    nz = want != 0
+    return float(((got - want).abs()[nz] / want.abs()[nz]).max()) if nz.any() else 0.0
+
+
+def kernel_breakdown(fn, top: int = 6) -> str:
+    """One call of ``fn`` under the profiler: the device time of its CUDA
+    kernels (each counted once, by the kernel events themselves) against
+    the call's wall time, and the kernels taking most of it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    if not kern:
+        return "device time: not measured (the trace shows no device time)"
+    busy = sum(e.self_device_time_total for e in kern) / 1e6
+    kinds: dict[str, float] = {}
+    for e in kern:
+        key = e.key.lower()
+        kind = next((k for k, words in KERNEL_KINDS if any(w in key for w in words)),
+                    "other")
+        kinds[kind] = kinds.get(kind, 0.0) + e.self_device_time_total / 1e6
+    by_kind = ", ".join(f"{k} {t * 1e3:.2f}ms ({t / busy:.1%})"
+                        for k, t in sorted(kinds.items(), key=lambda kv: -kv[1]))
+    kern.sort(key=lambda e: -e.self_device_time_total)
+    names = "; ".join(f"{e.key[:56]} x{e.count} {e.self_device_time_total / 1e3:.2f}ms "
+                      f"({e.self_device_time_total / 1e6 / busy:.1%})" for e in kern[:top])
+    return (f"device busy {busy * 1e3:.2f} ms of {wall * 1e3:.2f} ms wall (profiled; "
+            f"idle share {max(0.0, 1 - busy / wall):.4f}), "
+            f"{sum(e.count for e in kern)} kernel launches; by kind: {by_kind}; "
+            f"top: {names}")
+
+
+def phase_lm_parity(cfg, *, batch: int, seq: int, chunk: int, seed: int) -> None:
+    """Phase 7a: one train step (``microbatches=2``) of ``cfg`` in f32 on
+    the card and on the CPU from the same numpy-seeded parameters and
+    batch, TF32 off: the loss, the gradients' global norm and every
+    parameter after the AdamW update within rtol 1e-4, atol 1e-6; then the
+    chunked attention branch (``chunk_q = chunk_k = chunk``) against the
+    one-block branch on the card, at the config's head shapes."""
+    import numpy as np
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train
+    from repro_torch.models import steps
+    from repro_torch.models import transformer as tr
+    from repro_torch.optimizer import adamw
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    tree = lm_tree(cfg, seed)
+    corpus = pipeline.synthetic_corpus(cfg.vocab, 200_000, seed=0)
+    b = next(pipeline.token_batches(corpus, batch=batch, seq=seq, seed=1,
+                                    shard=pipeline.ShardSpec(0, 1)))
+    step = steps.make_train_step(lambda p, bb: tr.loss_fn(cfg, p, bb), train.OPT_CFG,
+                                 microbatches=2)
+    out = []
+    for device in (CARD, "cpu"):
+        model = convert.lm_params_from_numpy(tree, cfg, device=device)
+        state = adamw.init(list(model.parameters()))
+        t0 = time.perf_counter()
+        m = step(model, state, {k: torch.as_tensor(v, device=device) for k, v in b.items()})
+        loss = float(m["loss"])
+        out.append((model, m, time.perf_counter() - t0, loss))
+    del tree
+    (card, m_card, s_card, loss_card), (cpu, m_cpu, s_cpu, loss_cpu) = out
+    n = sum(p.numel() for p in cpu.parameters())
+    snapshot = [(name, p.detach().clone()) for name, p in card.named_parameters()]
+    t0 = time.perf_counter()
+    float(step(card, adamw.init(list(card.parameters())),
+               {k: torch.as_tensor(v, device=CARD) for k, v in b.items()})["loss"])
+    s_again = time.perf_counter() - t0
+    if not np.isfinite(loss_card) or not np.isclose(loss_card, loss_cpu, rtol=1e-4, atol=0):
+        raise AssertionError(f"train step loss on the card {loss_card} != cpu {loss_cpu}")
+    gn_card, gn_cpu = float(m_card["grad_norm"]), float(m_cpu["grad_norm"])
+    if not np.isclose(gn_card, gn_cpu, rtol=1e-4, atol=0):
+        raise AssertionError(f"grad norm on the card {gn_card} != cpu {gn_cpu}")
+    err, rel = 0.0, 0.0
+    for (name, p), q in zip(snapshot, cpu.parameters()):
+        q = q.detach().to(CARD)
+        if not torch.allclose(p, q, rtol=1e-4, atol=1e-6):
+            raise AssertionError(f"{name} after the AdamW update differs: card vs cpu "
+                                 f"max abs {float((p - q).abs().max()):.3g}")
+        err = max(err, float((p - q).abs().max()))
+        rel = max(rel, max_rel(p, q))
+    log(f"LM train step, {cfg.name} widths at {cfg.n_layers} layers ({n} parameters), "
+        f"f32, batch {batch} x seq {seq}, microbatches 2: card == cpu within rtol "
+        f"1e-4, atol 1e-6 (loss {loss_card:.6f} vs {loss_cpu:.6f}, grad norm "
+        f"{gn_card:.6f} vs {gn_cpu:.6f}; parameters max abs {err:.3g}, max rel "
+        f"{rel:.3g}); step {s_card:.2f}s on the card (first call; again "
+        f"{s_again:.2f}s), {s_cpu:.2f}s on the cpu")
+    del out, card, cpu, m_card, m_cpu, snapshot
+    free_card()
+    rng = np.random.default_rng(seed + 1)
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = (torch.as_tensor(rng.standard_normal(shape, dtype=np.float32), device=CARD)
+               for shape in ((batch, seq, h, hd), (batch, seq, kv, hd), (batch, seq, kv, hd)))
+    pos = torch.arange(seq, dtype=torch.int32, device=CARD).expand(batch, seq)
+    one = tr.gqa_attention(q, k, v, pos, pos, window=None)
+    chunked = tr.gqa_attention(q, k, v, pos, pos, window=None, chunk_q=chunk, chunk_k=chunk)
+    if not torch.allclose(chunked, one, rtol=1e-4, atol=1e-6):
+        raise AssertionError(f"chunked attention != one block (max abs "
+                             f"{float((chunked - one).abs().max()):.3g})")
+    log(f"chunked attention (chunk_q = chunk_k = {chunk}, {seq // chunk} x "
+        f"{seq // chunk} chunks) == one block on the card within rtol 1e-4, atol "
+        f"1e-6 (max abs {float((chunked - one).abs().max()):.3g}); phase 7a seconds: "
+        f"{time.perf_counter() - t_phase:.1f}")
+
+
+def phase_train(argv: list[str], n_params: int, batch: int, seq: int) -> None:
+    """Phase 7b: ``launch.train.main(argv)`` on the card into a scratch
+    checkpoint directory, with the launch counts zeroed just before and
+    read just after.  The injected failure must restart from the last
+    checkpoint and every step complete; every loss finite, the last five
+    below the first five on average, and the steps both attempts ran equal
+    within rtol 1e-3.  Logs the step time (median of steps 3-9), tokens/s,
+    model TFLOP/s (6 N tokens / step time) against the dense bf16 peak,
+    peak device memory, and the blocking seconds of a save and of the
+    restore."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as tr
+    from repro_torch.optimizer import adamw
+
+    t_phase = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="train_ckpt_", dir=ROOT / "build")
+    reset_peak()
+    kernels.reset_launches()
+    try:
+        attempts = train.main(argv + ["--ckpt-dir", ckpt_dir, "--device", CARD])
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    launches = kernels.launch_counts()
+    peak = max_allocated()
+    if any(launches.values()):
+        raise AssertionError(f"the LM path launched query kernels: {launches}")
+    fail_at = int(argv[argv.index("--inject-failure-at") + 1])
+    every = int(argv[argv.index("--ckpt-every") + 1])
+    n_steps = int(argv[argv.index("--steps") + 1])
+    if len(attempts) != 2 or attempts[1].start != fail_at // every * every:
+        raise AssertionError(f"expected one restart from step {fail_at // every * every}: "
+                             f"{[a.start for a in attempts]}")
+    first, second = attempts
+    losses = {**first.losses, **second.losses}
+    if sorted(losses) != list(range(n_steps)):
+        raise AssertionError(f"steps run: {sorted(losses)}")
+    if not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"non-finite loss: {losses}")
+    head = float(np.mean([losses[s] for s in range(5)]))
+    tail = float(np.mean([losses[s] for s in range(n_steps - 5, n_steps)]))
+    if not tail < head:
+        raise AssertionError(f"the loss did not fall: first five {head}, last five {tail}")
+    both = sorted(set(first.losses) & set(second.losses))
+    diffs = [abs(second.losses[s] - first.losses[s]) / abs(first.losses[s]) for s in both]
+    if not both or max(diffs) > 1e-3:
+        raise AssertionError(f"replayed steps {both} differ: {diffs}")
+    step_s = statistics.median(first.step_seconds[s] for s in range(3, 10))
+    after_save = [(a.start, s, a.step_seconds[s]) for a in attempts
+                  for s in sorted(a.step_seconds)
+                  if s % every == 0 and s > a.start]
+    tokens = batch * seq
+    tflops = 6.0 * n_params * tokens / step_s / 1e12
+    log(f"launch.train {' '.join(argv)}: {n_steps} steps completed, restart from "
+        f"step {second.start} after the failure injected at {fail_at}; losses "
+        f"{', '.join(f'{losses[s]:.4f}' for s in range(n_steps))}; mean of the first "
+        f"five {head:.4f}, last five {tail:.4f}; replayed steps {both[0]}-{both[-1]} "
+        f"max rel diff {max(diffs):.3g}")
+    log(f"training ({card_line()}): step {step_s:.4f} s (median of steps 3-9), "
+        f"{tokens / step_s:.0f} tokens/s, model {tflops:.1f} TFLOP/s (6 x "
+        f"{n_params} x {tokens} tokens / step) = {tflops / H100_BF16_TFLOPS:.3f} of "
+        f"the {H100_BF16_TFLOPS:.0f} TFLOP/s dense bf16 peak; peak device memory "
+        f"{peak} bytes; save (blocking part: device -> host copy) "
+        f"{', '.join(f'{t:.2f}' for t in first.save_seconds + second.save_seconds)} s; "
+        f"restore {second.restore_seconds:.2f} s; the step right after a save "
+        f"{', '.join(f'{t:.2f} s (step {st})' for _, st, t in after_save)}; "
+        f"launches {launches}")
+    cfg, _, step = train.build(argv[argv.index("--arch") + 1], "--reduced" in argv)
+    model = tr.init_params(cfg, 0, device=CARD)
+    state = adamw.init(list(model.parameters()))
+    corpus = pipeline.synthetic_corpus(cfg.vocab, 200_000, seed=0)
+    batch_t = {k: torch.as_tensor(v, device=CARD) for k, v in next(pipeline.token_batches(
+        corpus, batch=batch, seq=seq, seed=1, shard=pipeline.ShardSpec(0, 1))).items()}
+    float(step(model, state, batch_t)["loss"])  # warm
+    log(f"one training step of the full model: "
+        f"{kernel_breakdown(lambda: float(step(model, state, batch_t)['loss']))}")
+    del model, state, batch_t
+    log(f"phase 7b seconds: {time.perf_counter() - t_phase:.1f}")
+
+
+def phase_lm_serving(cfg, *, batch: int, seq: int, decode_steps: int, seed: int) -> None:
+    """Phase 7c: prefill ``batch`` x ``seq`` then one ``decode_step`` in f32
+    on the card: the decode logits equal the teacher-forced ``forward``
+    logits at position ``seq`` within rtol 1e-3 (atol 1e-3 x the largest
+    |logit|).  Then, in bf16 with bf16 parameters (the JAX package's serve
+    config), the prefill's time (CUDA events, median of 5) and the decode
+    ms/token over ``decode_steps`` steps."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import transformer as tr
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    model = tr.init_params(f32, seed, device=CARD)
+    rng = np.random.default_rng(seed)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (batch, seq + 1)).astype(np.int32),
+                           device=CARD)
+    with torch.no_grad():
+        hidden, _ = tr.forward(f32, model, toks)
+        want = tr.logits_of(f32, model, hidden[:, seq])
+    del hidden
+    _, cache = tr.prefill_step(f32, model, toks[:, :seq])
+    got, _ = tr.decode_step(f32, model, cache, toks[:, seq:seq + 1])
+    got = got[:, 0]
+    scale = float(want.abs().max())
+    if not torch.allclose(got, want, rtol=1e-3, atol=1e-3 * scale):
+        raise AssertionError(f"decode logits != teacher-forced logits (max abs "
+                             f"{float((got - want).abs().max()):.3g}, scale {scale:.3g})")
+    log(f"prefill {batch} x {seq} + decode_step at {cfg.name}'s full width, f32: "
+        f"decode logits == forward logits at position {seq} within rtol 1e-3 "
+        f"(max abs {float((got - want).abs().max()):.3g}, largest |logit| {scale:.3g})")
+    serve_cfg = dataclasses.replace(cfg, dtype=torch.bfloat16,
+                                    param_dtype=torch.bfloat16, remat=False)
+    params = tr.cast_params(serve_cfg, model)
+    del model, cache, got, want
+    free_card()
+    prompt = toks[:, :seq]
+    prefill_ms = median_ms(lambda: tr.prefill_step(serve_cfg, params, prompt), reps=5,
+                           warmup=2)
+    logits, cache = tr.prefill_step(serve_cfg, params, prompt)
+    run = {"cache": cache, "next": torch.argmax(logits, dim=-1)[:, None].to(torch.int32)}
+
+    def decode():  # greedy, feeding each step's argmax to the next
+        for _ in range(decode_steps):
+            run["logits"], run["cache"] = tr.decode_step(serve_cfg, params, run["cache"],
+                                                         run["next"])
+            run["next"] = torch.argmax(run["logits"][:, 0], dim=-1)[:, None].to(torch.int32)
+
+    decode_ms = median_ms(decode, reps=1, warmup=1) / decode_steps
+    logits = run.pop("logits")
+    share = kernel_breakdown(lambda: tr.decode_step(serve_cfg, params, run["cache"],
+                                                    run["next"]))
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("bf16 decode gave non-finite logits")
+    log(f"LM serving ({card_line()}), bf16 params and activations: prefill "
+        f"{batch} x {seq} {prefill_ms:.2f} ms (median of 5); decode "
+        f"{decode_ms:.3f} ms/token over {decode_steps} steps at batch {batch} "
+        f"(cache {seq} positions); one decode step: {share}; phase 7c seconds: "
+        f"{time.perf_counter() - t_phase:.1f}")
+    del params, cache, logits, run
+    free_card()
+
+
+def phase_join(db) -> None:
+    """Phase 7d: the paper's downstream evaluation (Tables 4/5) on the main
+    path's corpus: ``join.evaluate`` on the full graph and on the graph
+    pruned by the card's chi (the request's survivor mask), for
+    ``lubm_l0_like`` and the OPTIONAL query; the bindings must be equal
+    (Theorems 1/2)."""
+    import numpy as np
+
+    from repro_torch.core import join, sparql
+    from repro_torch.core.graph import subgraph_triples
+    from repro_torch.data import synth
+
+    for name, q in (("lubm_l0", synth.lubm_l0_like()), ("optional", synth.optional_query())):
+        rs = db.query(sparql.format_query(q))
+        g = rs.snapshot
+        pruned = subgraph_triples(g, rs.survivor_mask)
+        (t_full, full), (t_pruned, got) = (best_of_two(join.evaluate, q, graph)
+                                           for graph in (g, pruned))
+        if sorted(got.cols) != sorted(full.cols) or not all(
+                np.array_equal(got.cols[c], full.cols[c]) for c in full.cols):
+            raise AssertionError(f"{name}: bindings on the pruned graph differ")
+        log(f"join.evaluate {name}: {full.n_rows} bindings, equal on the full graph "
+            f"({g.n_edges} triples) and the pruned one ({pruned.n_edges} triples, "
+            f"fraction pruned {rs.stats.fraction_pruned:.4f}); best of two: full "
+            f"{t_full:.3f}s, pruned {t_pruned:.3f}s")
+
+
+def best_of_two(fn, *args):
+    """(the faster of two calls' host seconds, the last call's result)."""
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        times.append(time.perf_counter() - t0)
+    return min(times), out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--universities", type=int, default=8000)
@@ -1820,6 +2218,20 @@ def main() -> int:
     log("phase 4: kernels at main-path shapes")
     records = (phase_kernel_times(db, runs, launches) + dense_records
                + [segsum_record])
+    log("phase 7: training and LM serving")
+    t0 = time.perf_counter()
+    phase_join(db)
+    log(f"phase 7d seconds: {time.perf_counter() - t0:.1f}")
+    del db, runs, graph
+    free_card()
+    from repro_torch import configs
+
+    lm = configs.get(LM_ARCH).cfg
+    phase_lm_parity(dataclasses.replace(lm, n_layers=2, dtype=torch.float32),
+                    batch=2, seq=256, chunk=64, seed=args.seed)
+    phase_train(TRAIN_ARGV, lm.param_count(), batch=8, seq=1024)
+    free_card()
+    phase_lm_serving(lm, batch=4, seq=512, decode_steps=32, seed=args.seed)
     log(f"total {time.perf_counter() - t_start:.1f}s")
     log(card_line())
     log(json.dumps({"kernels": records}))

@@ -1,0 +1,24 @@
+"""Architecture registry: ``get(arch_id)`` returns an ArchSpec.
+
+The port holds the dense LM configs; the MoE, GNN, recsys and
+dual-simulation configs of the JAX package come with their slices.
+"""
+from __future__ import annotations
+
+import importlib
+
+ARCH_IDS = [
+    "internlm2-1.8b",
+    "qwen3-8b",
+    "yi-6b",
+]
+
+
+def get(arch_id: str):
+    if arch_id not in ARCH_IDS:
+        raise KeyError(f"unknown or not yet ported architecture {arch_id!r}; "
+                       f"the port has {ARCH_IDS}")
+    mod = importlib.import_module(
+        f"repro_torch.configs.{arch_id.replace('-', '_').replace('.', '_')}"
+    )
+    return mod.SPEC

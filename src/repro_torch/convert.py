@@ -1,10 +1,12 @@
 """Carry state across from the JAX package, handed over as numpy arrays.
 
-The reference has no weights: its state is the graph and the device
-operands built from it.  These two functions rebuild that state in the
-port from plain arrays, so a test can feed identical inputs to both
-packages.  Nothing here imports the JAX package; the caller converts its
-objects to numpy first.
+The query path's state is the graph and the device operands built from
+it; the LM's is its parameters and AdamW state.  These functions rebuild
+that state in the port from plain arrays, so a test can feed identical
+inputs to both packages (JAX's PRNG cannot be reproduced in torch, so
+every LM parity test starts both packages from the same converted
+parameters).  Nothing here imports the JAX package; the caller converts
+its objects to numpy first.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.core.dualsim import Operands
 from repro_torch.core.graph import Graph
+from repro_torch.models import transformer as tr
 
 
 def graph_from_arrays(
@@ -78,3 +81,47 @@ def operands_from_numpy(fields: dict, *, device=DEFAULT_DEVICE) -> Operands:
         else:
             kw[name] = _tensor(np.asarray(value), device)
     return Operands(**kw)
+
+
+def _leaf(tree: dict, name: str) -> np.ndarray:
+    """The JAX package's array for a port parameter name: ``layers.<i>.a.b``
+    is row ``i`` of the stacked ``tree["layers"]["a"]["b"]``."""
+    parts = name.split(".")
+    if parts[0] != "layers":
+        node = tree
+        for part in parts:
+            node = node[part]
+        return np.asarray(node)
+    node = tree["layers"]
+    for part in parts[2:]:
+        node = node[part]
+    return np.asarray(node)[int(parts[1])]
+
+
+@torch.no_grad()
+def lm_params_from_numpy(tree: dict, cfg: tr.LMConfig, *, device=DEFAULT_DEVICE) -> tr.LM:
+    """The port's :class:`~repro_torch.models.transformer.LM` from the JAX
+    package's parameter tree (``init_params``' nested dict, layers stacked
+    on a leading ``[L, ...]`` axis), as numpy arrays; each layer becomes
+    one module of the ``ModuleList``."""
+    model = tr.LM(cfg, resolve_device(device))
+    for name, p in model.named_parameters():
+        arr = _leaf(tree, name)
+        if arr.shape != tuple(p.shape):
+            raise ValueError(f"{name}: shape {arr.shape}, the port has {tuple(p.shape)}")
+        p.copy_(torch.from_numpy(np.array(arr, np.float32)))
+    return model
+
+
+def adamw_state_from_numpy(state: dict, model: tr.LM) -> dict:
+    """The port's AdamW state (moments in ``model.parameters()`` order, on
+    the model's device) from the JAX package's ``{"mu", "nu", "step"}``."""
+    names = [name for name, _ in model.named_parameters()]
+    device = next(model.parameters()).device
+    moments = {
+        key: [torch.from_numpy(np.asarray(_leaf(state[key], n), np.float32).copy()).to(device)
+              for n in names]
+        for key in ("mu", "nu")
+    }
+    step = torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32, device=device)
+    return {**moments, "step": step}

@@ -1,0 +1,520 @@
+"""Decoder-only LM family, the dense path: GQA transformers.
+
+Covers the dense LM architectures of the JAX package (internlm2-1.8b,
+qwen3-8b, yi-6b): grouped-query attention, RoPE, optional QK-norm (qwen3),
+optional sliding-window attention, SwiGLU FFN.  The token-choice MoE block
+of the JAX package is not ported yet: a config with ``moe`` set raises.
+
+Parameters live in an :class:`LM` module (a ``ModuleList`` of layers, f32
+masters); the functions below read them by attribute, so they take either
+the module or :func:`cast_params`' copy of it in the activation dtype.
+Attention and the loss are plain torch products, in the JAX package's
+formulation: f32 logits from the activations, a -1e30 mask with a -1e9
+floor on the running max, the probabilities cast back to the activation
+dtype before the PV product.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import types
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
+
+MASK_VALUE = -1e30  # additive bias of a masked (query, key) pair
+MAX_FLOOR = -1e9  # floor of the running max: a fully masked row gets p = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_expert: int
+    capacity_factor: float = 1.25
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 128
+    qk_norm: bool = False
+    sliding_window: int | None = None
+    moe: MoEConfig | None = None
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-5
+    dtype: torch.dtype = torch.bfloat16  # activation dtype
+    param_dtype: torch.dtype = torch.float32
+    remat: bool = True
+
+    @property
+    def full_attention(self) -> bool:
+        return self.sliding_window is None
+
+    def param_count(self) -> int:
+        """Total parameters (for 6ND model-FLOPs accounting)."""
+        d, h, kv, hd, f, v = (
+            self.d_model,
+            self.n_heads,
+            self.n_kv_heads,
+            self.head_dim,
+            self.d_ff,
+            self.vocab,
+        )
+        attn = d * h * hd + 2 * d * kv * hd + h * hd * d
+        if self.moe:
+            ffn = self.moe.n_experts * 3 * d * self.moe.d_expert + d * self.moe.n_experts
+        else:
+            ffn = 3 * d * f
+        per_layer = attn + ffn + 2 * d
+        return self.n_layers * per_layer + 2 * v * d + d
+
+    def active_param_count(self) -> int:
+        """Active (per-token) parameters — MoE counts top_k experts only."""
+        if not self.moe:
+            return self.param_count()
+        d = self.d_model
+        dense = self.param_count() - self.n_layers * (
+            self.moe.n_experts * 3 * d * self.moe.d_expert
+        )
+        return dense + self.n_layers * self.moe.top_k * 3 * d * self.moe.d_expert
+
+
+# --------------------------------------------------------------------- #
+# parameters
+# --------------------------------------------------------------------- #
+def _empty(shape, cfg: LMConfig, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=cfg.param_dtype, device=device))
+
+
+def _ones(n: int, cfg: LMConfig, device) -> nn.Parameter:
+    return nn.Parameter(torch.ones(n, dtype=cfg.param_dtype, device=device))
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: LMConfig, device):
+        super().__init__()
+        d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        self.wq = _empty((d, h * hd), cfg, device)
+        self.wk = _empty((d, kv * hd), cfg, device)
+        self.wv = _empty((d, kv * hd), cfg, device)
+        self.wo = _empty((h * hd, d), cfg, device)
+        if cfg.qk_norm:
+            self.q_norm = _ones(hd, cfg, device)
+            self.k_norm = _ones(hd, cfg, device)
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg: LMConfig, device):
+        super().__init__()
+        d, f = cfg.d_model, cfg.d_ff
+        self.w_gate = _empty((d, f), cfg, device)
+        self.w_up = _empty((d, f), cfg, device)
+        self.w_down = _empty((f, d), cfg, device)
+
+
+class Layer(nn.Module):
+    def __init__(self, cfg: LMConfig, device):
+        super().__init__()
+        self.attn = Attention(cfg, device)
+        self.ln1 = _ones(cfg.d_model, cfg, device)
+        self.ln2 = _ones(cfg.d_model, cfg, device)
+        self.mlp = MLP(cfg, device)
+
+
+class LM(nn.Module):
+    """The parameters of a dense LM, uninitialised (``init_params`` draws
+    them; ``convert.lm_params_from_numpy`` copies the JAX package's)."""
+
+    def __init__(self, cfg: LMConfig, device):
+        super().__init__()
+        if cfg.moe is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: the MoE block (moe_block) is not ported yet; it "
+                "comes with the MoE slice of the port (ctx.group_count and the "
+                "olmoe / mixtral configs)"
+            )
+        self.embed = _empty((cfg.vocab, cfg.d_model), cfg, device)
+        self.unembed = _empty((cfg.d_model, cfg.vocab), cfg, device)
+        self.ln_f = _ones(cfg.d_model, cfg, device)
+        self.layers = nn.ModuleList(Layer(cfg, device) for _ in range(cfg.n_layers))
+
+
+@torch.no_grad()
+def init_params(cfg: LMConfig, seed: int = 0, *, device=DEFAULT_DEVICE) -> LM:
+    """A random LM: every matrix ``normal / sqrt(fan_in)`` from a
+    ``torch.Generator`` on ``device`` seeded with ``seed``, norms at one."""
+    device = resolve_device(device)
+    model = LM(cfg, device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for name, p in model.named_parameters():
+        if p.dim() == 2:  # [fan_in, fan_out], and the embedding [vocab, d]
+            fan_in = cfg.d_model if name == "embed" else p.shape[0]
+            p.normal_(generator=gen).div_(math.sqrt(fan_in))
+    return model
+
+
+def cast_params(cfg: LMConfig, params: LM) -> types.SimpleNamespace:
+    """The module's parameter tree with every f32 tensor cast to the activation
+    dtype, made once per step; gradients flow back through the cast into
+    the f32 masters.  No-op casts for bf16 params."""
+
+    def tree(mod: nn.Module):
+        if isinstance(mod, nn.ModuleList):
+            return [tree(m) for m in mod]
+        out = types.SimpleNamespace()
+        for name, t in mod.named_parameters(recurse=False):
+            setattr(out, name, t.to(cfg.dtype) if t.dtype == torch.float32 else t)
+        for name, child in mod.named_children():
+            setattr(out, name, tree(child))
+        return out
+
+    return tree(params)
+
+
+# --------------------------------------------------------------------- #
+# building blocks
+# --------------------------------------------------------------------- #
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    dt = x.dtype
+    x = x.to(torch.float32)
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * w.to(torch.float32)).to(dt)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: [B, S, H, hd]; positions: [B, S].  Frequencies and angles in f32."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = theta ** (
+        -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    )
+    ang = positions[..., None].to(torch.float32) * freqs  # [B, S, half]
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def _mask_bias(
+    q_pos: torch.Tensor, k_pos: torch.Tensor, window: int | None
+) -> torch.Tensor:
+    """[B, 1, 1, Sq, Sk] additive f32 mask: causal (+ sliding window)."""
+    ok = k_pos[:, None, :] <= q_pos[:, :, None]
+    if window is not None:
+        ok &= k_pos[:, None, :] > q_pos[:, :, None] - window
+    zero = torch.zeros((), dtype=torch.float32, device=ok.device)
+    return torch.where(ok[:, None, None], zero, MASK_VALUE)
+
+
+def _logits(q: torch.Tensor, k: torch.Tensor, bias: torch.Tensor, scale: float):
+    """f32 logits [B, KV, G, cq, ck] of q [B, KV, G, cq, hd] against
+    k [B, KV, ck, hd] (exact for bf16 inputs), scaled, plus the mask."""
+    b, kvh, g, cq, hd = q.shape
+    qf = q.to(torch.float32).reshape(b, kvh, g * cq, hd)
+    logits = (qf @ k.to(torch.float32).transpose(-1, -2)).reshape(b, kvh, g, cq, -1)
+    return logits * scale + bias
+
+
+def _pv(p: torch.Tensor, v: torch.Tensor, dtype) -> torch.Tensor:
+    """p [B, KV, G, cq, ck] cast to the activation dtype, times
+    v [B, KV, ck, hd] -> [B, KV, G, cq, hd]."""
+    b, kvh, g, cq, ck = p.shape
+    o = p.to(dtype).reshape(b, kvh, g * cq, ck) @ v
+    return o.reshape(b, kvh, g, cq, -1)
+
+
+def _sdpa_block(q, k, v, bias, scale):
+    """GQA block attention.  q: [B, KV, G, cq, hd]; k/v: [B, KV, ck, hd];
+    bias: [B, 1, 1, cq, ck].  Returns (o [B,KV,G,cq,hd], m, l)."""
+    logits = _logits(q, k, bias, scale)
+    # clamp the running max above the mask value so fully-masked rows get
+    # p = exp(-1e30 + 1e9) = 0 instead of exp(0) = 1.
+    m = torch.clamp(torch.amax(logits, dim=-1), min=MAX_FLOOR)
+    p = torch.exp(logits - m[..., None])
+    l = torch.sum(p, dim=-1)
+    return _pv(p, v, q.dtype), m, l
+
+
+def gqa_attention(
+    q: torch.Tensor,  # [B, Sq, H, hd]
+    k: torch.Tensor,  # [B, Sk, KV, hd]
+    v: torch.Tensor,  # [B, Sk, KV, hd]
+    q_pos: torch.Tensor,  # [B, Sq]
+    k_pos: torch.Tensor,  # [B, Sk]
+    *,
+    window: int | None,
+    chunk_q: int = 1024,
+    chunk_k: int = 2048,
+) -> torch.Tensor:
+    """Flash-style chunked GQA attention (online softmax, O(S) memory).
+
+    Falls back to a single unchunked block for short sequences.  Never
+    materializes the repeated-KV tensor nor the full S x S logits.
+    """
+    b, sq, h, hd = q.shape
+    _, sk, kvh, _ = k.shape
+    g = h // kvh
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(b, sq, kvh, g, hd).permute(0, 2, 3, 1, 4)  # [B, KV, G, Sq, hd]
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)  # [B, KV, Sk, hd]
+
+    if sq * sk <= chunk_q * chunk_k * 4:  # small: one block
+        bias = _mask_bias(q_pos, k_pos, window)
+        o, m, l = _sdpa_block(qg, kt, vt, bias, scale)
+        o = o / torch.clamp(l, min=1e-30)[..., None].to(o.dtype)
+        return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
+
+    nq = -(-sq // chunk_q)
+    nk = -(-sk // chunk_k)
+    sq_p, sk_p = nq * chunk_q, nk * chunk_k
+    qg = F.pad(qg, (0, 0, 0, sq_p - sq))
+    kt = F.pad(kt, (0, 0, 0, sk_p - sk))
+    vt = F.pad(vt, (0, 0, 0, sk_p - sk))
+    # padded k positions must never be attended: put them far in the future
+    kpos_p = F.pad(k_pos, (0, sk_p - sk), value=2**30)
+    qpos_p = F.pad(q_pos, (0, sq_p - sq), value=0)
+
+    outs = []
+    for i in range(nq):
+        qs = slice(i * chunk_q, (i + 1) * chunk_q)
+        qc, qpc = qg[:, :, :, qs], qpos_p[:, qs]
+        m = torch.full((b, kvh, g, chunk_q), MAX_FLOOR, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((b, kvh, g, chunk_q), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, kvh, g, chunk_q, hd), dtype=q.dtype, device=q.device)
+        for j in range(nk):
+            ks = slice(j * chunk_k, (j + 1) * chunk_k)
+            logits = _logits(qc, kt[:, :, ks], _mask_bias(qpc, kpos_p[:, ks], window),
+                             scale)
+            m_new = torch.maximum(m, torch.amax(logits, dim=-1))
+            p = torch.exp(logits - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + torch.sum(p, dim=-1)
+            acc = acc * corr[..., None].to(acc.dtype) + _pv(p, vt[:, :, ks], qc.dtype)
+            m = m_new
+        o = acc / torch.clamp(l, min=1e-30)[..., None].to(acc.dtype)
+        outs.append(o.permute(0, 3, 1, 2, 4))  # [B, cq, KV, G, hd]
+    o = torch.cat(outs, dim=1).reshape(b, sq_p, h, hd)
+    return o[:, :sq]
+
+
+def attention(
+    cfg: LMConfig,
+    p,
+    x: torch.Tensor,  # [B, Sq, d]
+    positions: torch.Tensor,  # [B, Sq]
+    k_cache: torch.Tensor | None = None,  # [B, Sk, kv, hd]
+    v_cache: torch.Tensor | None = None,
+    k_pos: torch.Tensor | None = None,  # [B, Sk]
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    b, sq, d = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ p.wq.to(cfg.dtype)).reshape(b, sq, h, hd)
+    k = (x @ p.wk.to(cfg.dtype)).reshape(b, sq, kv, hd)
+    v = (x @ p.wv.to(cfg.dtype)).reshape(b, sq, kv, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p.q_norm, cfg.norm_eps)
+        k = rmsnorm(k, p.k_norm, cfg.norm_eps)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+
+    if k_cache is not None:
+        k_full = torch.cat([k_cache.to(k.dtype), k], dim=1)
+        v_full = torch.cat([v_cache.to(v.dtype), v], dim=1)
+        kp = torch.cat([k_pos, positions], dim=1)
+    else:
+        k_full, v_full, kp = k, v, positions
+
+    o = gqa_attention(
+        q, k_full, v_full, positions, kp, window=cfg.sliding_window
+    ).reshape(b, sq, h * hd)
+    return o @ p.wo.to(cfg.dtype), (k_full, v_full)
+
+
+def swiglu(p, x: torch.Tensor, dtype) -> torch.Tensor:
+    g = F.silu(x @ p.w_gate.to(dtype))
+    u = x @ p.w_up.to(dtype)
+    return (g * u) @ p.w_down.to(dtype)
+
+
+# --------------------------------------------------------------------- #
+# forward passes
+# --------------------------------------------------------------------- #
+def _layer_fwd(cfg: LMConfig, lp, x, positions):
+    a, _ = attention(cfg, lp.attn, rmsnorm(x, lp.ln1, cfg.norm_eps), positions)
+    x = x + a
+    hin = rmsnorm(x, lp.ln2, cfg.norm_eps)
+    return x + swiglu(lp.mlp, hin, cfg.dtype)
+
+
+def _positions(tokens: torch.Tensor) -> torch.Tensor:
+    b, s = tokens.shape
+    return torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
+
+
+def forward(cfg: LMConfig, params, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Teacher-forced forward: tokens [B, S] -> (hidden [B, S, d], aux).
+
+    The unembedding is applied separately (chunked, in the loss / serving
+    head) so the full [B, S, V] logits tensor is never materialized.  The
+    dense path has no auxiliary loss: ``aux`` is a zero.
+    """
+    positions = _positions(tokens)
+    x = params.embed.to(cfg.dtype)[tokens]
+    for lp in params.layers:
+        if cfg.remat:
+            x = checkpoint(_layer_fwd, cfg, lp, x, positions, use_reentrant=False)
+        else:
+            x = _layer_fwd(cfg, lp, x, positions)
+    x = rmsnorm(x, params.ln_f, cfg.norm_eps)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def logits_of(cfg: LMConfig, params, hidden: torch.Tensor) -> torch.Tensor:
+    return hidden @ params.unembed.to(cfg.dtype)
+
+
+class _ChunkCE(torch.autograd.Function):
+    """Summed masked cross entropy of one sequence chunk: ``sum((lse - tgt)
+    * mask)`` with f32 logits ``hc @ w``.  One ``[B, c, V]`` f32 slab is
+    live at a time, in the forward and in the backward, which recomputes
+    the logits instead of saving them."""
+
+    @staticmethod
+    def forward(ctx, hc, w, lc):
+        logits = (hc @ w).to(torch.float32)  # [B, c, V]
+        idx = torch.clamp(lc, min=0).to(torch.int64)[..., None]
+        tgt = torch.gather(logits, -1, idx)[..., 0]
+        m = torch.amax(logits, dim=-1)
+        lse = torch.log(torch.sum(logits.sub_(m[..., None]).exp_(), dim=-1)) + m
+        mask = (lc >= 0).to(torch.float32)
+        ctx.save_for_backward(hc, w, idx, lse, mask)
+        return torch.sum((lse - tgt) * mask)
+
+    @staticmethod
+    def backward(ctx, grad):
+        hc, w, idx, lse, mask = ctx.saved_tensors
+        d = (hc @ w).to(torch.float32)
+        d.sub_(lse[..., None]).exp_()  # softmax
+        d.scatter_add_(-1, idx, torch.full_like(idx, -1, dtype=d.dtype))
+        d.mul_((grad * mask)[..., None])
+        d = d.to(hc.dtype)
+        grad_h = d @ w.transpose(0, 1) if ctx.needs_input_grad[0] else None
+        grad_w = None
+        if ctx.needs_input_grad[1]:
+            grad_w = hc.reshape(-1, hc.shape[-1]).transpose(0, 1) @ d.reshape(-1, d.shape[-1])
+        return grad_h, grad_w, None
+
+
+def chunked_ce(
+    cfg: LMConfig,
+    params,
+    hidden: torch.Tensor,  # [B, S, d]
+    labels: torch.Tensor,  # [B, S] (-1 = masked)
+    chunk: int = 1024,
+) -> torch.Tensor:
+    """Cross entropy without materializing [B, S, V]: per sequence chunk,
+    the logits, their logsumexp and the target logit."""
+    b, s, d = hidden.shape
+    w = params.unembed.to(cfg.dtype)
+    chunk = min(chunk, s)
+    n = -(-s // chunk)
+    pad = n * chunk - s
+    h = F.pad(hidden, (0, 0, 0, pad)) if pad else hidden
+    l = F.pad(labels, (0, pad), value=-1) if pad else labels
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(n):
+        hc, lc = h[:, i * chunk:(i + 1) * chunk], l[:, i * chunk:(i + 1) * chunk]
+        tot = tot + _ChunkCE.apply(hc, w, lc)
+        cnt = cnt + torch.sum((lc >= 0).to(torch.float32))
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+@torch.no_grad()
+def prefill_step(cfg: LMConfig, params, tokens: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """Serving prefill: build the KV cache, return last-position logits."""
+    b, s = tokens.shape
+    positions = _positions(tokens)
+    x = params.embed.to(cfg.dtype)[tokens]
+    win = cfg.sliding_window
+    ks, vs = [], []
+    for lp in params.layers:
+        a, (k, v) = attention(
+            cfg, lp.attn, rmsnorm(x, lp.ln1, cfg.norm_eps), positions
+        )
+        x = x + a
+        hin = rmsnorm(x, lp.ln2, cfg.norm_eps)
+        x = x + swiglu(lp.mlp, hin, cfg.dtype)
+        if win is not None:
+            k, v = k[:, -win:], v[:, -win:]
+        ks.append(k)
+        vs.append(v)
+    x = rmsnorm(x, params.ln_f, cfg.norm_eps)
+    last_logits = x[:, -1] @ params.unembed.to(cfg.dtype)
+    cache = {"k": torch.stack(ks), "v": torch.stack(vs),
+             "pos": torch.full((b,), s, dtype=torch.int32, device=tokens.device)}
+    return last_logits, cache
+
+
+def init_kv_cache(cfg: LMConfig, batch: int, seq: int, *, device=DEFAULT_DEVICE) -> dict:
+    """Pre-filled KV cache stand-in for decode shapes.  For sliding-window
+    attention the cache only ever holds the last ``window`` positions."""
+    device = resolve_device(device)
+    s = min(seq, cfg.sliding_window) if cfg.sliding_window else seq
+    shape = (cfg.n_layers, batch, s, cfg.n_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+        "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
+        "pos": torch.full((batch,), s, dtype=torch.int32, device=device),
+    }
+
+
+@torch.no_grad()
+def decode_step(
+    cfg: LMConfig, params, cache: dict, tokens: torch.Tensor
+) -> tuple[torch.Tensor, dict]:
+    """One-token decode: tokens [B, 1]; rolling cache for SWA."""
+    positions = cache["pos"][:, None]  # [B, 1]
+    x = params.embed.to(cfg.dtype)[tokens]
+    s_cache = cache["k"].shape[2]
+    k_pos = positions - s_cache + torch.arange(
+        s_cache, dtype=torch.int32, device=tokens.device)[None, :]
+    k_c, v_c = [], []
+    for lp, kc, vc in zip(params.layers, cache["k"], cache["v"]):
+        a, (k_new, v_new) = attention(
+            cfg,
+            lp.attn,
+            rmsnorm(x, lp.ln1, cfg.norm_eps),
+            positions,
+            k_cache=kc,
+            v_cache=vc,
+            k_pos=k_pos,
+        )
+        x = x + a
+        hin = rmsnorm(x, lp.ln2, cfg.norm_eps)
+        x = x + swiglu(lp.mlp, hin, cfg.dtype)
+        # roll the cache: drop oldest position, append the new one
+        k_c.append(k_new[:, 1:])
+        v_c.append(v_new[:, 1:])
+    x = rmsnorm(x, params.ln_f, cfg.norm_eps)
+    logits = x @ params.unembed.to(cfg.dtype)
+    new_cache = {"k": torch.stack(k_c), "v": torch.stack(v_c), "pos": cache["pos"] + 1}
+    return logits, new_cache
+
+
+def loss_fn(cfg: LMConfig, params, batch: dict) -> torch.Tensor:
+    params = cast_params(cfg, params)
+    hidden, aux = forward(cfg, params, batch["tokens"])
+    loss = chunked_ce(cfg, params, hidden, batch["labels"])
+    return loss + 0.01 * aux

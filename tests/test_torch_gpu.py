@@ -2,9 +2,9 @@
 segmented OR, the two packed boolean products and the segment sum) against
 their plain PyTorch versions, the query path on the card (the edge
 engines, the partitioned engine and the dense tier) against the same path
-on the CPU, and a two-replica ``AsyncServer`` on the card.  A CUDA
-kernel has no CPU mode, so without a card
-these skip.  The file imports neither JAX nor the JAX package, so it runs
+on the CPU, a two-replica ``AsyncServer`` on the card, and the LM's
+train step, attention, decode and ``launch.train`` on the card against
+the CPU.  A CUDA kernel has no CPU mode, so without a card these skip.  The file imports neither JAX nor the JAX package, so it runs
 where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
@@ -497,3 +497,96 @@ def test_async_server_two_replicas_on_card(cuda_device):
             assert np.array_equal(r.result.survivor_mask, w.survivor_mask)
         cpu.insert([("DeptNew", "subOrganizationOf", "Univ0"),
                     ("StudentNew", "memberOf", "DeptNew")])
+
+
+# --------------------------------------------------------------------- #
+# the LM training path on the card against the CPU (tiny twins of
+# chip_smoke.py's phase 7a), f32 with TF32 off
+# --------------------------------------------------------------------- #
+def _tiny_lm():
+    from repro_torch.models import transformer as tr
+
+    return tr.LMConfig(name="tiny", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+                       d_ff=128, vocab=101, head_dim=16, dtype=torch.float32)
+
+
+@pytest.fixture
+def no_tf32():
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_lm_train_step_on_card_matches_cpu(cuda_device, no_tf32, microbatches):
+    """One step from the same parameters and batch: loss, grad norm and
+    every parameter after the AdamW update within rtol 1e-4, atol 1e-6."""
+    import copy
+
+    from repro_torch.launch import train
+    from repro_torch.models import steps
+    from repro_torch.models import transformer as tr
+    from repro_torch.optimizer import adamw
+
+    cfg = _tiny_lm()
+    cpu = tr.init_params(cfg, 0, device="cpu")
+    card = copy.deepcopy(cpu).to(cuda_device)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (4, 32)).astype(np.int32)
+    step = steps.make_train_step(lambda p, b: tr.loss_fn(cfg, p, b), train.OPT_CFG,
+                                 microbatches=microbatches)
+    out = []
+    for model, dev in ((cpu, "cpu"), (card, cuda_device)):
+        t = torch.as_tensor(toks, device=dev)
+        out.append(step(model, adamw.init(list(model.parameters())),
+                        {"tokens": t, "labels": t}))
+    for key in ("loss", "grad_norm", "lr"):
+        torch.testing.assert_close(out[1][key].cpu(), out[0][key], rtol=1e-4, atol=0)
+    for p, q in zip(card.parameters(), cpu.parameters()):
+        torch.testing.assert_close(p.detach().cpu(), q.detach(), rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("window", [None, 8])
+def test_lm_chunked_attention_on_card_matches_one_block(cuda_device, no_tf32, window):
+    from repro_torch.models import transformer as tr
+
+    rng = np.random.default_rng(1)
+    q, k, v = (torch.as_tensor(rng.standard_normal(s, dtype=np.float32), device=cuda_device)
+               for s in ((2, 40, 4, 16), (2, 40, 2, 16), (2, 40, 2, 16)))
+    pos = torch.arange(40, dtype=torch.int32, device=cuda_device).expand(2, 40)
+    one = tr.gqa_attention(q, k, v, pos, pos, window=window)
+    chunked = tr.gqa_attention(q, k, v, pos, pos, window=window, chunk_q=4, chunk_k=8)
+    torch.testing.assert_close(chunked, one, rtol=1e-4, atol=1e-6)
+    cpu = tr.gqa_attention(q.cpu(), k.cpu(), v.cpu(), pos.cpu(), pos.cpu(), window=window)
+    torch.testing.assert_close(one.cpu(), cpu, rtol=1e-4, atol=1e-6)
+
+
+def test_lm_prefill_decode_on_card_matches_forward(cuda_device, no_tf32):
+    from repro_torch.models import transformer as tr
+
+    cfg = _tiny_lm()
+    model = tr.init_params(cfg, 0, device=cuda_device)
+    toks = torch.as_tensor(np.random.default_rng(2).integers(0, cfg.vocab, (2, 17)),
+                           dtype=torch.int32, device=cuda_device)
+    with torch.no_grad():
+        hidden, _ = tr.forward(cfg, model, toks)
+        want = tr.logits_of(cfg, model, hidden)[:, 16]
+    _, cache = tr.prefill_step(cfg, model, toks[:, :16])
+    got, _ = tr.decode_step(cfg, model, cache, toks[:, 16:])
+    torch.testing.assert_close(got[:, 0], want, rtol=1e-3, atol=2e-4)
+
+
+def test_lm_launch_train_on_card_resumes(cuda_device, tmp_path):
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.launch import train
+
+    args = ["--reduced", "--steps", "8", "--batch", "4", "--seq", "16",
+            "--ckpt-every", "3", "--ckpt-dir", str(tmp_path)]
+    first, second = train.main(args + ["--inject-failure-at", "5"])
+    assert second.start == 3
+    for s in (3, 4):
+        np.testing.assert_allclose(second.losses[s], first.losses[s], rtol=1e-3)
+    like = {"a": torch.zeros(2, device=cuda_device)}
+    ckpt.save(str(tmp_path / "x"), 1, {"a": torch.ones(2, device=cuda_device)})
+    restored, _ = ckpt.restore(str(tmp_path / "x"), like)
+    assert restored["a"].device.type == "cuda" and bool(restored["a"].eq(1).all())
