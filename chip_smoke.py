@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive and check the torch port's query, serving and training paths on one card.
+"""Drive and check the torch port's query, serving, training and model paths on one card.
 
     python3 chip_smoke.py [--universities 8000] [--seed 0]
 
@@ -99,6 +99,30 @@ failure fatal:
    launch counts are zeroed before (b) and must stay zero: the LM path
    reaches no TPU kernel.
 
+8. the MoE LMs on the card: (a) one train step of olmoe-1b-7b's and
+   mixtral-8x7b's ``reduced()`` configs (E = 4, top-2, capacity factor 1.0
+   so that slots are dropped), f32, TF32 off, on the card and on the CPU
+   from the same numpy-seeded parameters, and ``route`` / ``moe_block`` on
+   both devices (the dispatch equal exactly); (b) ``launch.train.main`` on
+   olmoe-1b-7b at full width cut to ``OLMOE_TRAIN_LAYERS`` layers, bf16
+   over f32 masters, remat, 8 x 1024 tokens, 10 steps: the loss finite and
+   falling; step time, tokens/s, model TFLOP/s from
+   ``active_param_count``, peak memory, the share of slots dropped, and a
+   profiled step split by the MoE's stages; (c) olmoe-1b-7b serving at full
+   depth in bf16 (prefill 4 x 512, 32 decode steps; decode == forward in
+   f32 at 2 layers); (d) mixtral-8x7b at full width, 2 of 32 layers, bf16:
+   prefill 1 x 6,144 tokens past its 4,096 window, 16 decode steps, the KV
+   cache window-sized;
+9. the GNN family on the card: (a) one ``GNNArch.step`` of each of the four
+   at ``reduced()`` widths on ``full_graph_sm`` and ``molecule``, card ==
+   CPU; (b) gat-cora on ``ogb_products``, a random graph at ogbn-products'
+   published size (2,449,029 nodes, 61,859,140 edges), bf16, 5 steps; (c)
+   gatedgcn (16 x 70) on ``minibatch_lg`` blocks that ``NeighborSampler``
+   draws from (b)'s graph, 10 steps, the sampler's host seconds apart; (d)
+   all four on ``full_graph_sm`` and pna and schnet on ``molecule`` at full
+   width, 3 steps each.  Phases 8 and 9 reach no TPU kernel: the launch
+   counts are zeroed before each and must stay zero.
+
 The last three lines are the card's name and power limit, a JSON line of
 kernel records, and ``{"ok": true, "device": {...}}``.
 """
@@ -143,11 +167,26 @@ SEGOR_KERNELS = ("Memset", "transpose_kernel", "segor_blocks_kernel")
 # phase 7: the LM whose widths run, and launch.train's arguments
 # (the checkpoint directory is added; so is --keep 1: a checkpoint of the
 # full model's f32 state is 22.7 GB, and three kept plus one in flight would
-# not fit a 79 GB disk).  20 steps, not 30: each 22.7 GB save costs ~25 s
-# of the script's time, and 30 steps add one more
+# not fit a 79 GB disk).  14 steps: a checkpoint at step 10, the failure at
+# 12, the replay of steps 10-11 and the final save; each 22.7 GB save costs
+# ~25 s of the script's time, and 20 steps would add one more in the loop
 LM_ARCH = "internlm2-1.8b"
-TRAIN_ARGV = ["--arch", LM_ARCH, "--steps", "20", "--batch", "8", "--seq", "1024",
-              "--ckpt-every", "10", "--inject-failure-at", "15", "--keep", "1"]
+TRAIN_ARGV = ["--arch", LM_ARCH, "--steps", "14", "--batch", "8", "--seq", "1024",
+              "--ckpt-every", "10", "--inject-failure-at", "12", "--keep", "1"]
+# phase 8: the MoE LMs; olmoe-1b-7b's training leg at full width cut to
+# OLMOE_TRAIN_LAYERS layers, the most whose f32 masters, gradients, AdamW
+# moments and bf16 copy (18 bytes a parameter: 206M outside the layers,
+# 419.6M a layer, 7.55 GB) and the activations leave >= 10 GB of the card
+# free:
+# 7 layers peaked at 53.0 GB of the card's 85.0 GB, so 9 layers (+15.1 GB
+# of state) leave ~17 GB free and 10 would leave ~9 GB
+MOE_ARCHS = ("olmoe-1b-7b", "mixtral-8x7b")
+OLMOE_TRAIN_LAYERS = 9
+MOE_TRAIN_ARGV = ["--arch", "olmoe-1b-7b", "--steps", "10", "--batch", "8",
+                  "--seq", "1024", "--keep", "1"]
+MOE_RANGES = ("moe_router", "moe_sort", "moe_dispatch", "moe_experts", "moe_combine")
+# phase 9: the GNN family
+GNN_IDS = ("gatedgcn", "gat-cora", "pna", "schnet")
 H100_BF16_TFLOPS = 989.0  # dense bf16 peak, NVIDIA's data sheet (SXM, 700 W)
 # coarse kinds of CUDA kernels in a profiled LM step, by words of their names
 KERNEL_KINDS = (("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
@@ -1834,7 +1873,9 @@ def trace_share(prof, wall: float) -> str:
 def lm_tree(cfg, seed: int) -> dict:
     """LM parameters in the JAX package's layout (layers stacked on a
     leading axis) as numpy: every matrix ``normal / sqrt(fan_in)`` from a
-    seeded generator, norms at one."""
+    seeded generator, norms at one; an MoE layer's router ``[d, E]`` and
+    expert stacks (gate and up ``[E, d, fe]``, down ``[E, fe, d]``) in
+    place of the dense FFN."""
     import math
 
     import numpy as np
@@ -1851,14 +1892,19 @@ def lm_tree(cfg, seed: int) -> dict:
     if cfg.qk_norm:
         attn["q_norm"] = np.ones((L, cfg.head_dim), np.float32)
         attn["k_norm"] = np.ones((L, cfg.head_dim), np.float32)
-    return {
-        "embed": dense((v, d), d), "unembed": dense((d, v), d),
-        "ln_f": np.ones(d, np.float32),
-        "layers": {"attn": attn, "ln1": np.ones((L, d), np.float32),
-                   "ln2": np.ones((L, d), np.float32),
-                   "mlp": {"w_gate": dense((L, d, f), d), "w_up": dense((L, d, f), d),
-                           "w_down": dense((L, f, d), f)}},
-    }
+    # attention, then the embeddings, then the FFN: phase 7a's data depends on the order
+    embed, unembed = dense((v, d), d), dense((d, v), d)
+    layers = {"attn": attn, "ln1": np.ones((L, d), np.float32),
+              "ln2": np.ones((L, d), np.float32)}
+    if cfg.moe:
+        e, fe = cfg.moe.n_experts, cfg.moe.d_expert
+        layers["moe"] = {"router": dense((L, d, e), d), "w_gate": dense((L, e, d, fe), d),
+                         "w_up": dense((L, e, d, fe), d), "w_down": dense((L, e, fe, d), fe)}
+    else:
+        layers["mlp"] = {"w_gate": dense((L, d, f), d), "w_up": dense((L, d, f), d),
+                         "w_down": dense((L, f, d), f)}
+    return {"embed": embed, "unembed": unembed, "ln_f": np.ones(d, np.float32),
+            "layers": layers}
 
 
 def max_rel(got, want) -> float:
@@ -1868,10 +1914,13 @@ def max_rel(got, want) -> float:
     return float(((got - want).abs()[nz] / want.abs()[nz]).max()) if nz.any() else 0.0
 
 
-def kernel_breakdown(fn, top: int = 6) -> str:
+def kernel_breakdown(fn, top: int = 6, ranges: tuple[str, ...] = ()) -> str:
     """One call of ``fn`` under the profiler: the device time of its CUDA
     kernels (each counted once, by the kernel events themselves) against
-    the call's wall time, and the kernels taking most of it."""
+    the call's wall time, and the kernels taking most of it; then the
+    device time of the kernels launched inside each profiler range named
+    in ``ranges`` (the forward ops in it; backward kernels run outside
+    any such range)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1883,7 +1932,7 @@ def kernel_breakdown(fn, top: int = 6) -> str:
         wall = time.perf_counter() - t0
     kern = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
+            and e.self_device_time_total > 0 and e.key not in MOE_RANGES]
     if not kern:
         return "device time: not measured (the trace shows no device time)"
     busy = sum(e.self_device_time_total for e in kern) / 1e6
@@ -1898,10 +1947,18 @@ def kernel_breakdown(fn, top: int = 6) -> str:
     kern.sort(key=lambda e: -e.self_device_time_total)
     names = "; ".join(f"{e.key[:56]} x{e.count} {e.self_device_time_total / 1e3:.2f}ms "
                       f"({e.self_device_time_total / 1e6 / busy:.1%})" for e in kern[:top])
-    return (f"device busy {busy * 1e3:.2f} ms of {wall * 1e3:.2f} ms wall (profiled; "
-            f"idle share {max(0.0, 1 - busy / wall):.4f}), "
-            f"{sum(e.count for e in kern)} kernel launches; by kind: {by_kind}; "
-            f"top: {names}")
+    out = (f"device busy {busy * 1e3:.2f} ms of {wall * 1e3:.2f} ms wall (profiled; "
+           f"idle share {max(0.0, 1 - busy / wall):.4f}), "
+           f"{sum(e.count for e in kern)} kernel launches; by kind: {by_kind}; "
+           f"top: {names}")
+    if ranges:  # the kernels launched by the CPU ops inside each range
+        spans = {r: [e for e in prof.events() if e.name == r
+                     and e.device_type == torch.autograd.DeviceType.CPU] for r in ranges}
+        out += "; kernels inside the ranges (forward and its remat recompute): " + ", ".join(
+            f"{r} {sum(e.device_time_total for e in es) / 1e3:.2f}ms "
+            f"({sum(e.device_time_total for e in es) / 1e6 / busy:.1%}) x{len(es)}"
+            for r, es in spans.items())
+    return out
 
 
 def phase_lm_parity(cfg, *, batch: int, seq: int, chunk: int, seed: int) -> None:
@@ -2070,13 +2127,19 @@ def phase_train(argv: list[str], n_params: int, batch: int, seq: int) -> None:
     log(f"phase 7b seconds: {time.perf_counter() - t_phase:.1f}")
 
 
-def phase_lm_serving(cfg, *, batch: int, seq: int, decode_steps: int, seed: int) -> None:
-    """Phase 7c: prefill ``batch`` x ``seq`` then one ``decode_step`` in f32
-    on the card: the decode logits equal the teacher-forced ``forward``
-    logits at position ``seq`` within rtol 1e-3 (atol 1e-3 x the largest
-    |logit|).  Then, in bf16 with bf16 parameters (the JAX package's serve
-    config), the prefill's time (CUDA events, median of 5) and the decode
-    ms/token over ``decode_steps`` steps."""
+def phase_lm_serving(cfg, *, batch: int, seq: int, decode_steps: int, seed: int,
+                     parity_layers: int | None = None, label: str = "7c") -> None:
+    """Phase 7c (8c, 8d for the MoE LMs): prefill ``batch`` x ``seq`` then
+    one ``decode_step`` in f32 on the card, at ``parity_layers`` layers
+    (default: all of them): the decode logits equal the teacher-forced
+    ``forward`` logits at position ``seq`` within rtol 1e-3 (atol 1e-3 x
+    the largest |logit|).  An MoE runs this check at a capacity factor of
+    E / top_k, where no slot can be dropped: decode routes each token
+    alone, the forward routes it among the sequence's.  Then, in bf16 with
+    bf16 parameters (the JAX package's serve config) at ``cfg``'s depth,
+    the prefill's time (CUDA events, median of 5) and the decode ms/token
+    over ``decode_steps`` steps; a sliding-window model's cache must stay
+    window-sized."""
     import dataclasses
 
     import numpy as np
@@ -2086,7 +2149,11 @@ def phase_lm_serving(cfg, *, batch: int, seq: int, decode_steps: int, seed: int)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     t_phase = time.perf_counter()
-    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    f32 = dataclasses.replace(cfg, dtype=torch.float32,
+                              n_layers=parity_layers or cfg.n_layers)
+    if cfg.moe:
+        f32 = dataclasses.replace(f32, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
     model = tr.init_params(f32, seed, device=CARD)
     rng = np.random.default_rng(seed)
     toks = torch.as_tensor(rng.integers(0, cfg.vocab, (batch, seq + 1)).astype(np.int32),
@@ -2102,14 +2169,15 @@ def phase_lm_serving(cfg, *, batch: int, seq: int, decode_steps: int, seed: int)
     if not torch.allclose(got, want, rtol=1e-3, atol=1e-3 * scale):
         raise AssertionError(f"decode logits != teacher-forced logits (max abs "
                              f"{float((got - want).abs().max()):.3g}, scale {scale:.3g})")
-    log(f"prefill {batch} x {seq} + decode_step at {cfg.name}'s full width, f32: "
-        f"decode logits == forward logits at position {seq} within rtol 1e-3 "
-        f"(max abs {float((got - want).abs().max()):.3g}, largest |logit| {scale:.3g})")
+    log(f"prefill {batch} x {seq} + decode_step at {cfg.name}'s full width, "
+        f"{f32.n_layers} layers, f32: decode logits == forward logits at position "
+        f"{seq} within rtol 1e-3 (max abs {float((got - want).abs().max()):.3g}, "
+        f"largest |logit| {scale:.3g})")
     serve_cfg = dataclasses.replace(cfg, dtype=torch.bfloat16,
                                     param_dtype=torch.bfloat16, remat=False)
-    params = tr.cast_params(serve_cfg, model)
     del model, cache, got, want
     free_card()
+    params = tr.init_params(serve_cfg, seed, device=CARD)
     prompt = toks[:, :seq]
     prefill_ms = median_ms(lambda: tr.prefill_step(serve_cfg, params, prompt), reps=5,
                            warmup=2)
@@ -2124,17 +2192,506 @@ def phase_lm_serving(cfg, *, batch: int, seq: int, decode_steps: int, seed: int)
 
     decode_ms = median_ms(decode, reps=1, warmup=1) / decode_steps
     logits = run.pop("logits")
+    window = ""
+    if cfg.sliding_window:
+        want_s = min(seq, cfg.sliding_window)
+        if cache["k"].shape[2] != want_s or run["cache"]["k"].shape[2] != want_s:
+            raise AssertionError(f"the KV cache is not window-sized: prefill "
+                                 f"{tuple(cache['k'].shape)}, after decode "
+                                 f"{tuple(run['cache']['k'].shape)}, window {want_s}")
+        window = (f"; KV cache {tuple(run['cache']['k'].shape)} = the {want_s}-position "
+                  f"window after {seq} + {2 * decode_steps} positions")
     share = kernel_breakdown(lambda: tr.decode_step(serve_cfg, params, run["cache"],
                                                     run["next"]))
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError("bf16 decode gave non-finite logits")
-    log(f"LM serving ({card_line()}), bf16 params and activations: prefill "
-        f"{batch} x {seq} {prefill_ms:.2f} ms (median of 5); decode "
-        f"{decode_ms:.3f} ms/token over {decode_steps} steps at batch {batch} "
-        f"(cache {seq} positions); one decode step: {share}; phase 7c seconds: "
-        f"{time.perf_counter() - t_phase:.1f}")
+    log(f"LM serving {cfg.name} at {cfg.n_layers} layers ({card_line()}), bf16 params "
+        f"and activations: prefill {batch} x {seq} {prefill_ms:.2f} ms (median of 5); "
+        f"decode {decode_ms:.3f} ms/token over {decode_steps} steps at batch {batch} "
+        f"(cache {seq} positions){window}; one decode step: {share}; phase {label} "
+        f"seconds: {time.perf_counter() - t_phase:.1f}")
     del params, cache, logits, run
     free_card()
+
+
+# --------------------------------------------------------------------- #
+# phase 8: the MoE LM on the card
+# --------------------------------------------------------------------- #
+def check_step(name: str, card, cpu, before, grads, lr: float, wd: float,
+               eps: float) -> tuple[float, float, int]:
+    """Parameters after one AdamW step on the card (``card``) against the
+    same step on the CPU (``cpu``), from ``before`` with the CPU's
+    gradients ``grads``: within rtol 1e-4, atol 1e-6 wherever the gradient
+    is zero or above 100 x eps.  Between the two, AdamW's first step
+    ``g / (|g| + eps)`` turns the gradients' f32 rounding into a step of up
+    to ``lr``, so there each parameter is held to the step's bound, ``|p' -
+    p| <= lr (1 + wd |p|)``.  Returns (max abs, max rel, the count held to
+    the bound)."""
+    import torch
+
+    err = rel = 0.0
+    bounded = 0
+    for (pname, p), q, p0, g in zip(card.named_parameters(), cpu.parameters(), before, grads):
+        p, q = p.detach().cpu(), q.detach()
+        well = (g.abs() > 100 * eps) | (g == 0)
+        if not torch.allclose(p[well], q[well], rtol=1e-4, atol=1e-6):
+            raise AssertionError(f"{name}: {pname} after the step differs: card vs cpu "
+                                 f"max abs {float((p - q)[well].abs().max()):.3g}")
+        bound = lr * (1 + wd * p0[~well].abs()) * (1 + 1e-4)
+        if not bool(((p[~well] - p0[~well]).abs() <= bound).all()):
+            raise AssertionError(f"{name}: {pname} moved past the step's bound")
+        bounded += int((~well).sum())
+        if bool(well.any()):
+            err = max(err, float((p - q)[well].abs().max()))
+            rel = max(rel, max_rel(p[well], q[well]))
+    return err, rel, bounded
+
+
+def phase_moe_parity(arch_ids, *, batch: int, seq: int, seed: int) -> None:
+    """Phase 8a: each MoE LM at its ``reduced()`` widths (2 layers, E = 4,
+    top-2), f32, TF32 off, capacity factor 1.0 so that slots are dropped:
+    one train step (``launch.train``'s optimizer) on the card and on the
+    CPU from the same numpy-seeded parameters and batch, the loss and the
+    gradients' global norm within rtol 1e-4 and every parameter as
+    :func:`check_step` holds it; then ``route`` on one layer's router and
+    a seeded input: the experts of the sorted slots, their tokens,
+    positions and the dropped set equal exactly, and ``moe_block``'s output
+    within rtol 1e-4, atol 1e-6."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs, convert
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train
+    from repro_torch.models import steps
+    from repro_torch.models import transformer as tr
+    from repro_torch.optimizer import adamw
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    for arch_id in arch_ids:
+        cfg = configs.get(arch_id).reduced()
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=1.0))
+        tree = lm_tree(cfg, seed)
+        corpus = pipeline.synthetic_corpus(cfg.vocab, 200_000, seed=0)
+        b = next(pipeline.token_batches(corpus, batch=batch, seq=seq, seed=1,
+                                        shard=pipeline.ShardSpec(0, 1)))
+        step = steps.make_train_step(lambda p, bb: tr.loss_fn(cfg, p, bb), train.OPT_CFG)
+        cpu = convert.lm_params_from_numpy(tree, cfg, device="cpu")
+        before = [p.detach().clone() for p in cpu.parameters()]
+        cpu_b = {k: torch.as_tensor(v) for k, v in b.items()}
+        grads = torch.autograd.grad(tr.loss_fn(cfg, cpu, cpu_b), list(cpu.parameters()))
+        out = []
+        for model, device in ((convert.lm_params_from_numpy(tree, cfg, device=CARD), CARD),
+                              (cpu, "cpu")):
+            state = adamw.init(list(model.parameters()))
+            m = step(model, state, {k: torch.as_tensor(v, device=device) for k, v in b.items()})
+            out.append((model, {k: float(v) for k, v in m.items()}))
+        (card, m_card), (_, m_cpu) = out
+        for key in ("loss", "grad_norm"):
+            if not np.isfinite(m_card[key]) or not np.isclose(m_card[key], m_cpu[key],
+                                                               rtol=1e-4, atol=0):
+                raise AssertionError(f"{arch_id}: {key} on the card {m_card[key]} != cpu "
+                                     f"{m_cpu[key]}")
+        err, rel, bounded = check_step(arch_id, card, cpu, before, grads, m_cpu["lr"],
+                                       train.OPT_CFG.weight_decay, train.OPT_CFG.eps)
+        n = sum(p.numel() for p in cpu.parameters())
+        x = np.random.default_rng(seed + 2).standard_normal((1, batch * seq, cfg.d_model),
+                                                            dtype=np.float32)
+        moe = [convert.lm_params_from_numpy(tree, cfg, device=dev).layers[0].moe
+               for dev in (CARD, "cpu")]
+        routed = [tr.route(cfg, m.router, torch.as_tensor(x, device=m.router.device))[1]
+                  for m in moe]
+        for f in ("expert", "token", "pos", "counts", "kept"):
+            if not torch.equal(getattr(routed[0], f).cpu(), getattr(routed[1], f)):
+                raise AssertionError(f"{arch_id}: the dispatch's {f} differs on the card")
+        dropped = 1.0 - float(routed[1].kept.float().mean())
+        if dropped == 0.0:
+            raise AssertionError(f"{arch_id}: capacity 1.0 dropped no slot")
+        y = [tr.moe_block(cfg, m, torch.as_tensor(x, device=m.router.device))[0].detach().cpu()
+             for m in moe]
+        y_err = float((y[0] - y[1]).abs().max())
+        if not torch.allclose(y[0], y[1], rtol=1e-4, atol=1e-6):
+            raise AssertionError(f"{arch_id}: moe_block on the card != cpu (max abs "
+                                 f"{y_err:.3g})")
+        log(f"MoE train step, {arch_id} reduced ({n} parameters, E {cfg.moe.n_experts} "
+            f"top-{cfg.moe.top_k}, capacity factor 1.0), f32, batch {batch} x seq {seq}: "
+            f"card == cpu (loss {m_card['loss']:.6f} vs {m_cpu['loss']:.6f}, grad norm "
+            f"{m_card['grad_norm']:.6f} vs {m_cpu['grad_norm']:.6f}; parameters max abs "
+            f"{err:.3g}, max rel {rel:.3g}, {bounded} held to the step's bound); dispatch "
+            f"of {x.shape[1]} tokens equal exactly on both devices (experts, tokens, "
+            f"positions, dropped set: {dropped:.4f} of the slots dropped); moe_block max "
+            f"abs {y_err:.3g}")
+    log(f"phase 8a seconds: {time.perf_counter() - t_phase:.1f}")
+
+
+def drop_share(cfg, model, tokens) -> float:
+    """The share of (token, k) slots the MoE layers drop in a forward pass
+    of ``tokens``, read from every ``route`` call of that pass."""
+    import torch
+
+    from repro_torch.models import transformer as tr
+
+    seen = []
+    route = tr.route
+
+    def counting(*args, **kw):
+        probs, disp = route(*args, **kw)
+        seen.append((int(disp.kept.sum()), disp.kept.numel()))
+        return probs, disp
+
+    tr.route = counting
+    try:
+        with torch.no_grad():
+            tr.forward(cfg, tr.cast_params(cfg, model), tokens)
+    finally:
+        tr.route = route
+    return 1.0 - sum(k for k, _ in seen) / sum(n for _, n in seen)
+
+
+def phase_moe_train(argv: list[str], layers: int, batch: int, seq: int) -> None:
+    """Phase 8b: ``launch.train.main(argv)`` on the card with the config the
+    loop builds cut to ``layers`` layers (``dataclasses.replace(cfg,
+    n_layers=...)`` around ``launch.train.build``), with the launch counts
+    zeroed just before and read just after: every loss finite and the last
+    three below the first three on average.  Logs the step time (median of
+    steps 3-9), tokens/s, model TFLOP/s from ``active_param_count``
+    against the dense bf16 peak, peak device memory and what it leaves
+    free, the share of slots dropped in a forward pass, and one more step
+    profiled, split by kind and by the MoE's profiler ranges."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train
+    from repro_torch.models import steps
+    from repro_torch.models import transformer as tr
+    from repro_torch.optimizer import adamw
+
+    t_phase = time.perf_counter()
+    build = train.build
+
+    def cut(arch, reduced, dtype=None):
+        cfg, opt_cfg, _ = build(arch, reduced, dtype)
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+        return cfg, opt_cfg, steps.make_train_step(lambda p, b: tr.loss_fn(cfg, p, b),
+                                                   opt_cfg)
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="moe_ckpt_", dir=ROOT / "build")
+    reset_peak()
+    train.build = cut
+    try:
+        (attempt,) = train.main(argv + ["--ckpt-dir", ckpt_dir, "--device", CARD])
+        cfg, _, step = cut(argv[argv.index("--arch") + 1], "--reduced" in argv)
+    finally:
+        train.build = build
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    peak = max_allocated()
+    losses = [attempt.losses[s] for s in sorted(attempt.losses)]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+        raise AssertionError(f"the loss did not fall: {losses}")
+    step_s = statistics.median(attempt.step_seconds[s] for s in range(3, min(10, len(losses))))
+    tokens = batch * seq
+    n_active = cfg.active_param_count()
+    tflops = 6.0 * n_active * tokens / step_s / 1e12
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"launch.train {' '.join(argv)} at {layers} of {configs.get(cfg.name).cfg.n_layers} layers "
+        f"({cfg.param_count()} parameters, {n_active} active): losses "
+        f"{', '.join(f'{v:.4f}' for v in losses)}")
+    log(f"MoE training ({card_line()}): step {step_s:.4f} s (median of steps 3-9), "
+        f"{tokens / step_s:.0f} tokens/s, model {tflops:.1f} TFLOP/s (6 x {n_active} "
+        f"active x {tokens} tokens / step) = {tflops / H100_BF16_TFLOPS:.3f} of the "
+        f"{H100_BF16_TFLOPS:.0f} TFLOP/s dense bf16 peak; peak device memory {peak} "
+        f"bytes of {total} ({(total - peak) / 1e9:.1f} GB free)")
+    free_card()
+    model = tr.init_params(cfg, 0, device=CARD)
+    state = adamw.init(list(model.parameters()))
+    corpus = pipeline.synthetic_corpus(cfg.vocab, 200_000, seed=0)
+    batch_t = {k: torch.as_tensor(v, device=CARD) for k, v in next(pipeline.token_batches(
+        corpus, batch=batch, seq=seq, seed=1, shard=pipeline.ShardSpec(0, 1))).items()}
+    float(step(model, state, batch_t)["loss"])  # warm
+    profile = kernel_breakdown(lambda: float(step(model, state, batch_t)["loss"]), top=8,
+                               ranges=MOE_RANGES)
+    log(f"one MoE training step: {profile}")
+    uniform = torch.randint(0, cfg.vocab, batch_t["tokens"].shape, device=CARD,
+                            generator=torch.Generator(device=CARD).manual_seed(1))
+    log(f"slots dropped in a forward pass after two steps (capacity factor "
+        f"{cfg.moe.capacity_factor}): {drop_share(cfg, model, batch_t['tokens']):.4f} of "
+        f"the Zipfian batch, {drop_share(cfg, model, uniform):.4f} of a batch of "
+        f"uniform random tokens")
+    del model, state, batch_t
+    free_card()
+    log(f"phase 8b seconds: {time.perf_counter() - t_phase:.1f}")
+
+
+# --------------------------------------------------------------------- #
+# phase 9: the GNN family on the card
+# --------------------------------------------------------------------- #
+def gnn_batch(arch, cell, seed: int, device) -> dict:
+    """A batch in ``cell``'s format at the cell's padded shapes
+    (``GNNArch._shapes``): random edges among the cell's real nodes, the
+    padding masked; features, labels (-1 on padded nodes) and, for
+    ``molecule``, graphs of ``nodes_per`` nodes with ``edges_per`` edges
+    each and their positions."""
+    import numpy as np
+    import torch
+
+    ex = cell.extras
+    n, e, g = arch._shapes(cell)
+    rng = np.random.default_rng(seed)
+    if cell.name == "molecule":
+        per, eper = ex["nodes_per"], ex["edges_per"]
+        base_ = np.repeat(np.arange(g) * per, eper)
+        edges = np.stack([rng.integers(0, per, g * eper) + base_,
+                          rng.integers(0, per, g * eper) + base_], 1)
+        feat = (rng.integers(1, 10, n).astype(np.int32) if arch.id == "schnet"
+                else rng.standard_normal((n, ex["d_feat"]), dtype=np.float32))
+        b = {"feat": feat, "edges": edges.astype(np.int32), "edge_mask": np.ones(e, bool),
+             "labels": rng.standard_normal(g, dtype=np.float32),
+             "node_graph": (np.arange(n) // per).astype(np.int32),
+             "positions": rng.standard_normal((n, 3), dtype=np.float32)}
+    else:
+        n_real, e_real = ex["n_nodes"], ex["n_edges"]
+        edges = np.zeros((e, 2), np.int32)
+        edges[:e_real] = rng.integers(0, n_real, (e_real, 2))
+        labels = np.full(n, -1, np.int32)
+        labels[:n_real] = rng.integers(0, ex["n_out"], n_real)
+        b = {"feat": rng.standard_normal((n, ex["d_feat"]), dtype=np.float32),
+             "edges": edges, "edge_mask": np.arange(e) < e_real, "labels": labels,
+             "node_graph": np.zeros(n, np.int32)}
+    return {k: torch.as_tensor(v, device=device) for k, v in b.items()}
+
+
+def phase_gnn_parity(arch_ids, seed: int) -> None:
+    """Phase 9a: each GNN at its ``reduced()`` widths takes one
+    ``GNNArch.step`` on the ``full_graph_sm`` cell (node classification,
+    Cora's size) and on the ``molecule`` cell (graph regression), f32, TF32
+    off, on the card and on the CPU from the same parameters and batch:
+    loss and gradient norm within rtol 1e-4, parameters as
+    :func:`check_step` holds them."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.configs import base
+    from repro_torch.models import gnn
+    from repro_torch.optimizer import adamw
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    lines = []
+    for arch_id in arch_ids:
+        arch = base.GNNArch(arch_id, configs.get(arch_id).reduced())
+        for cell_name in ("full_graph_sm", "molecule"):
+            cell = arch.cells()[cell_name]
+            cfg = arch.cell_cfg(cell)
+            cpu = gnn.init_params(cfg, seed, device="cpu")
+            card = copy.deepcopy(cpu).to(CARD)
+            before = [p.detach().clone() for p in cpu.parameters()]
+            b = gnn_batch(arch, cell, seed, "cpu")
+            lb = dict(b, n_graphs=cell.extras["n_graphs"])
+            lb.setdefault("positions", torch.zeros((b["feat"].shape[0], 3)))
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
+                cpu.parameters(), torch.autograd.grad(gnn.loss_fn(cfg, cpu, lb),
+                                                      list(cpu.parameters()),
+                                                      allow_unused=True))]
+            out = []
+            for model, dev in ((card, CARD), (cpu, "cpu")):
+                state = {"params": model, "opt": adamw.init(list(model.parameters()))}
+                _, m = arch.step(cell)(state, {k: v.to(dev) for k, v in b.items()})
+                out.append({k: float(v) for k, v in m.items()})
+            for key in ("loss", "grad_norm"):
+                a, c = out[0][key], out[1][key]
+                if not np.isfinite(a) or not np.isclose(a, c, rtol=1e-4, atol=0):
+                    raise AssertionError(f"{arch_id} {cell_name}: {key} card {a} != cpu {c}")
+            err, _, bounded = check_step(f"{arch_id} {cell_name}", card, cpu, before,
+                                         grads, out[1]["lr"], arch.opt.weight_decay,
+                                         arch.opt.eps)
+            lines.append(f"{arch_id}/{cell_name} loss {out[0]['loss']:.6f} vs "
+                         f"{out[1]['loss']:.6f}, parameters max abs {err:.3g} "
+                         f"({bounded} held to the step's bound)")
+    log(f"GNNArch.step at reduced widths, f32, card == cpu within rtol 1e-4: "
+        f"{'; '.join(lines)}; phase 9a seconds: {time.perf_counter() - t_phase:.1f}")
+
+
+def gnn_steps(arch, cell, batch: dict, steps_n: int, seed: int, top: int = 6) -> tuple:
+    """``steps_n`` ``GNNArch.step`` calls of ``arch`` on ``cell`` from a
+    model drawn from ``seed`` on the card, each timed by the host clock
+    around a step that ends in reading the loss, then one more profiled:
+    (losses, step seconds, the profile's line)."""
+    import numpy as np
+
+    from repro_torch.models import gnn
+    from repro_torch.optimizer import adamw
+
+    cfg = arch.cell_cfg(cell)
+    model = gnn.init_params(cfg, seed, device=CARD)
+    state = {"params": model, "opt": adamw.init(list(model.parameters()))}
+    step = arch.step(cell)
+    losses, seconds = [], []
+    for _ in range(steps_n):
+        t0 = time.perf_counter()
+        losses.append(float(step(state, batch)[1]["loss"]))
+        seconds.append(time.perf_counter() - t0)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{arch.id} on {cell.name}: non-finite loss {losses}")
+    profile = kernel_breakdown(lambda: float(step(state, batch)[1]["loss"]), top=top)
+    return losses, seconds, profile
+
+
+def phase_gnn_products(seed: int, n_nodes: int | None = None,
+                       n_edges: int | None = None, steps_n: int = 5):
+    """Phase 9b: gat-cora on the ``ogb_products`` cell, bf16 activations per
+    ``cell_cfg``, over a random graph at ogbn-products' published size
+    (2,449,029 nodes, 61,859,140 edges, 100 features, 47 classes; padded to
+    the cell's 512 multiples), made on the card from ``seed``.  Logs the
+    step time (median; the first step apart), edges/s, peak device memory
+    and one step profiled.  Returns the graph's real edges as numpy, for
+    phase 9c."""
+    import torch
+
+    from repro_torch import configs
+
+    t_phase = time.perf_counter()
+    arch = configs.get("gat-cora")
+    cell = arch.cells()["ogb_products"]
+    ex = cell.extras
+    n_real, e_real = n_nodes or ex["n_nodes"], n_edges or ex["n_edges"]
+    n, e, _ = arch._shapes(cell) if n_nodes is None else (n_real, e_real, 1)
+    gen = torch.Generator(device=CARD).manual_seed(seed)
+    edges = torch.zeros((e, 2), dtype=torch.int32, device=CARD)
+    edges[:e_real] = torch.randint(0, n_real, (e_real, 2), generator=gen, device=CARD,
+                                   dtype=torch.int32)
+    labels = torch.full((n,), -1, dtype=torch.int32, device=CARD)
+    labels[:n_real] = torch.randint(0, ex["n_out"], (n_real,), generator=gen, device=CARD,
+                                    dtype=torch.int32)
+    batch = {"feat": torch.randn((n, ex["d_feat"]), generator=gen, device=CARD),
+             "edges": edges, "edge_mask": torch.arange(e, device=CARD) < e_real,
+             "labels": labels, "node_graph": torch.zeros(n, dtype=torch.int32, device=CARD)}
+    made = time.perf_counter() - t_phase
+    reset_peak()
+    losses, seconds, profile = gnn_steps(arch, cell, batch, steps_n, seed)
+    peak = max_allocated()
+    step_s = statistics.median(seconds[1:])
+    log(f"gat-cora on ogb_products ({card_line()}): {n_real} nodes, {e_real} edges "
+        f"(padded to {n} / {e}), {ex['d_feat']} features, {ex['n_out']} classes, "
+        f"{arch.cell_cfg(cell).dtype}; graph made on the card in {made:.2f} s; losses "
+        f"{', '.join(f'{v:.4f}' for v in losses)}; step {step_s:.4f} s (median of steps "
+        f"2-{steps_n}; first {seconds[0]:.4f} s), {e_real / step_s:.4g} edges/s; peak "
+        f"device memory {peak} bytes; one step: {profile}")
+    real = edges[:e_real].cpu().numpy()
+    del batch, edges, labels
+    free_card()
+    log(f"phase 9b seconds: {time.perf_counter() - t_phase:.1f}")
+    return n_real, real
+
+
+def phase_gnn_sampled(n_nodes: int, edges, seed: int, steps_n: int = 10,
+                      seeds_n: int | None = None) -> None:
+    """Phase 9c: gatedgcn at full width and depth (16 x 70) on the
+    ``minibatch_lg`` cell: ``NeighborSampler`` over phase 9b's graph, 1,024
+    seeds a step (``seeds_n``), fanout (15, 10), 602 features from a
+    random table on the card, 41 classes, labels on the seeds only; each
+    block padded to the cell's shapes.  Logs the sampler's host seconds
+    (its CSR build, then each block) apart from each step's time (host
+    clock around the upload and the step, ending in reading the loss)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import gnn, sampler
+    from repro_torch.optimizer import adamw
+
+    t_phase = time.perf_counter()
+    arch = configs.get("gatedgcn")
+    cell = arch.cells()["minibatch_lg"]
+    ex = cell.extras
+    seeds_n = seeds_n or ex["batch_nodes"]
+    n_pad, e_pad, _ = arch._shapes(cell)
+    t0 = time.perf_counter()
+    sm = sampler.NeighborSampler(n_nodes, edges, seed=seed)
+    build_s = time.perf_counter() - t0
+    gen = torch.Generator(device=CARD).manual_seed(seed)
+    table = torch.randn((n_nodes, ex["d_feat"]), generator=gen, device=CARD)
+    classes = torch.randint(0, ex["n_out"], (n_nodes,), generator=gen, device=CARD)
+    cfg = arch.cell_cfg(cell)
+    model = gnn.init_params(cfg, seed, device=CARD)
+    state = {"params": model, "opt": adamw.init(list(model.parameters()))}
+    step = arch.step(cell)
+    rng = np.random.default_rng(seed)
+    reset_peak()
+    losses, sample_s, step_s, real = [], [], [], []
+    for _ in range(steps_n):
+        t0 = time.perf_counter()
+        blk = sm.sample(rng.choice(n_nodes, seeds_n, replace=False), ex["fanout"])
+        sample_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        ids = torch.as_tensor(blk.node_ids, device=CARD)
+        nm = len(ids)
+        feat = torch.zeros((max(n_pad, nm), ex["d_feat"]), device=CARD)
+        feat[:nm] = table[ids]
+        labels = torch.full((len(feat),), -1, dtype=torch.int64, device=CARD)
+        labels[:seeds_n] = classes[ids[:seeds_n]]
+        edges_t = torch.zeros((max(e_pad, len(blk.edges)), 2), dtype=torch.int32,
+                              device=CARD)
+        edges_t[:len(blk.edges)] = torch.as_tensor(blk.edges, device=CARD)
+        mask = torch.zeros(len(edges_t), dtype=torch.bool, device=CARD)
+        mask[:len(blk.edges)] = torch.as_tensor(blk.edge_mask, device=CARD)
+        batch = {"feat": feat, "edges": edges_t, "edge_mask": mask, "labels": labels,
+                 "node_graph": torch.zeros(len(feat), dtype=torch.int32, device=CARD)}
+        losses.append(float(step(state, batch)[1]["loss"]))
+        step_s.append(time.perf_counter() - t0)
+        real.append((int(blk.node_mask.sum()), int(blk.edge_mask.sum())))
+    peak = max_allocated()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"gatedgcn on minibatch_lg: non-finite loss {losses}")
+    profile = kernel_breakdown(lambda: float(step(state, batch)[1]["loss"]))
+    log(f"gatedgcn ({cfg.n_layers} x {cfg.d_hidden}) on minibatch_lg ({card_line()}): "
+        f"sampler CSR over {len(edges)} edges {build_s:.2f} s (host); a block of "
+        f"{seeds_n} seeds, fanout {ex['fanout']}: {statistics.median(sample_s):.4f} s "
+        f"(host, median of {steps_n}); real nodes / edges per block "
+        f"{real[0][0]}-{max(r[0] for r in real)} / {real[0][1]}-{max(r[1] for r in real)} "
+        f"(padded to {len(feat)} / {len(edges_t)}); step (upload + step) "
+        f"{statistics.median(step_s[1:]):.4f} s (median of steps 2-{steps_n}; first "
+        f"{step_s[0]:.4f} s); losses {', '.join(f'{v:.4f}' for v in losses)}; peak "
+        f"device memory {peak} bytes; one step: {profile}")
+    del table, classes, model, state, batch
+    free_card()
+    log(f"phase 9c seconds: {time.perf_counter() - t_phase:.1f}")
+
+
+def phase_gnn_small(seed: int, steps_n: int = 3) -> None:
+    """Phase 9d: every GNN at full width on ``full_graph_sm`` (2,708 nodes,
+    10,556 edges, Cora's size) and pna and schnet on ``molecule`` (128
+    graphs x 30 nodes x 64 edges), ``steps_n`` steps each: losses finite,
+    step time (median), peak device memory."""
+    from repro_torch import configs
+
+    t_phase = time.perf_counter()
+    lines = []
+    for arch_id, cell_name in (("gatedgcn", "full_graph_sm"), ("gat-cora", "full_graph_sm"),
+                               ("pna", "full_graph_sm"), ("schnet", "full_graph_sm"),
+                               ("pna", "molecule"), ("schnet", "molecule")):
+        arch = configs.get(arch_id)
+        cell = arch.cells()[cell_name]
+        reset_peak()
+        losses, seconds, _ = gnn_steps(arch, cell, gnn_batch(arch, cell, seed, CARD),
+                                       steps_n, seed)
+        lines.append(f"{arch_id}/{cell_name} step {statistics.median(seconds):.4f} s "
+                     f"(median of {steps_n}), loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+                     f"peak {max_allocated()} bytes")
+    free_card()
+    log(f"GNNs at full width ({card_line()}): {'; '.join(lines)}; phase 9d seconds: "
+        f"{time.perf_counter() - t_phase:.1f}")
 
 
 def phase_join(db) -> None:
@@ -2162,6 +2719,52 @@ def phase_join(db) -> None:
             f"({g.n_edges} triples) and the pruned one ({pruned.n_edges} triples, "
             f"fraction pruned {rs.stats.fraction_pruned:.4f}); best of two: full "
             f"{t_full:.3f}s, pruned {t_pruned:.3f}s")
+
+
+def no_launches(phase: str, t_phase: float) -> None:
+    """Fail if a phase that reaches no TPU kernel launched one."""
+    from repro_torch import kernels
+
+    launches = kernels.launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"phase {phase} launched TPU kernels: {launches}")
+    log(f"phase {phase}: launches {launches} (none, as the path reaches no TPU kernel); "
+        f"seconds {time.perf_counter() - t_phase:.1f}")
+
+
+def phase_moe(seed: int) -> None:
+    """Phase 8, the MoE LMs: 8a parity, 8b olmoe-1b-7b training, 8c
+    olmoe-1b-7b serving at full depth, 8d mixtral-8x7b at 2 layers past its
+    window; the launch counts zeroed before and zero after."""
+    from repro_torch import configs, kernels
+
+    log("phase 8: the MoE LMs")
+    t_phase = time.perf_counter()
+    kernels.reset_launches()
+    phase_moe_parity(MOE_ARCHS, batch=2, seq=64, seed=seed)
+    phase_moe_train(MOE_TRAIN_ARGV, OLMOE_TRAIN_LAYERS, batch=8, seq=1024)
+    phase_lm_serving(configs.get("olmoe-1b-7b").cfg, batch=4, seq=512, decode_steps=32,
+                     seed=seed, parity_layers=2, label="8c")
+    phase_lm_serving(dataclasses.replace(configs.get("mixtral-8x7b").cfg, n_layers=2),
+                     batch=1, seq=6144, decode_steps=16, seed=seed, label="8d")
+    no_launches("8", t_phase)
+
+
+def phase_gnn(seed: int) -> None:
+    """Phase 9, the GNN family: 9a parity, 9b gat-cora on the full
+    ogb_products graph, 9c gatedgcn on sampled minibatch_lg blocks, 9d the
+    small cells; the launch counts zeroed before and zero after."""
+    from repro_torch import kernels
+
+    log("phase 9: the GNN family")
+    t_phase = time.perf_counter()
+    kernels.reset_launches()
+    phase_gnn_parity(GNN_IDS, seed)
+    n_nodes, edges = phase_gnn_products(seed)
+    phase_gnn_sampled(n_nodes, edges, seed)
+    del edges
+    phase_gnn_small(seed)
+    no_launches("9", t_phase)
 
 
 def best_of_two(fn, *args):
@@ -2232,6 +2835,8 @@ def main() -> int:
     phase_train(TRAIN_ARGV, lm.param_count(), batch=8, seq=1024)
     free_card()
     phase_lm_serving(lm, batch=4, seq=512, decode_steps=32, seed=args.seed)
+    phase_moe(args.seed)
+    phase_gnn(args.seed)
     log(f"total {time.perf_counter() - t_start:.1f}s")
     log(card_line())
     log(json.dumps({"kernels": records}))

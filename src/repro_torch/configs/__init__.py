@@ -1,7 +1,8 @@
 """Architecture registry: ``get(arch_id)`` returns an ArchSpec.
 
-The port holds the dense LM configs; the MoE, GNN, recsys and
-dual-simulation configs of the JAX package come with their slices.
+The port holds the LM configs (dense and MoE) and the GNN configs; the
+recsys and dual-simulation configs of the JAX package come with their
+slices.
 """
 from __future__ import annotations
 
@@ -11,6 +12,12 @@ ARCH_IDS = [
     "internlm2-1.8b",
     "qwen3-8b",
     "yi-6b",
+    "olmoe-1b-7b",
+    "mixtral-8x7b",
+    "gatedgcn",
+    "gat-cora",
+    "pna",
+    "schnet",
 ]
 
 

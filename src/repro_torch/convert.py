@@ -1,11 +1,11 @@
 """Carry state across from the JAX package, handed over as numpy arrays.
 
 The query path's state is the graph and the device operands built from
-it; the LM's is its parameters and AdamW state.  These functions rebuild
-that state in the port from plain arrays, so a test can feed identical
-inputs to both packages (JAX's PRNG cannot be reproduced in torch, so
-every LM parity test starts both packages from the same converted
-parameters).  Nothing here imports the JAX package; the caller converts
+it; the LM's and the GNN's are their parameters and AdamW state.  These
+functions rebuild that state in the port from plain arrays, so a test can
+feed identical inputs to both packages (JAX's PRNG cannot be reproduced in
+torch, so every model parity test starts both packages from the same
+converted parameters).  Nothing here imports the JAX package; the caller converts
 its objects to numpy first.
 """
 from __future__ import annotations
@@ -18,6 +18,7 @@ import torch
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.core.dualsim import Operands
 from repro_torch.core.graph import Graph
+from repro_torch.models import gnn
 from repro_torch.models import transformer as tr
 
 
@@ -83,19 +84,32 @@ def operands_from_numpy(fields: dict, *, device=DEFAULT_DEVICE) -> Operands:
     return Operands(**kw)
 
 
+def _walk(node, parts: list[str], name: str):
+    for part in parts:
+        try:
+            node = node[int(part)] if isinstance(node, (list, tuple)) else node[part]
+        except (KeyError, IndexError):
+            raise ValueError(f"the JAX package's tree has no leaf for {name!r}") from None
+    return node
+
+
 def _leaf(tree: dict, name: str) -> np.ndarray:
-    """The JAX package's array for a port parameter name: ``layers.<i>.a.b``
-    is row ``i`` of the stacked ``tree["layers"]["a"]["b"]``."""
+    """The JAX package's array for a port LM parameter name:
+    ``layers.<i>.a.b`` is row ``i`` of the stacked ``tree["layers"]["a"]["b"]``
+    (``a`` is ``moe`` for an MoE layer's router and experts)."""
     parts = name.split(".")
     if parts[0] != "layers":
-        node = tree
-        for part in parts:
-            node = node[part]
-        return np.asarray(node)
-    node = tree["layers"]
-    for part in parts[2:]:
-        node = node[part]
-    return np.asarray(node)[int(parts[1])]
+        return np.asarray(_walk(tree, parts, name))
+    return np.asarray(_walk(tree["layers"], parts[2:], name))[int(parts[1])]
+
+
+def _copy_leaves(model: torch.nn.Module, leaf) -> None:
+    """Copy ``leaf(name)``, a numpy array, into each parameter of ``model``."""
+    for name, p in model.named_parameters():
+        arr = leaf(name)
+        if arr.shape != tuple(p.shape):
+            raise ValueError(f"{name}: shape {arr.shape}, the port has {tuple(p.shape)}")
+        p.copy_(torch.from_numpy(np.array(arr, np.float32)))
 
 
 @torch.no_grad()
@@ -103,19 +117,29 @@ def lm_params_from_numpy(tree: dict, cfg: tr.LMConfig, *, device=DEFAULT_DEVICE)
     """The port's :class:`~repro_torch.models.transformer.LM` from the JAX
     package's parameter tree (``init_params``' nested dict, layers stacked
     on a leading ``[L, ...]`` axis), as numpy arrays; each layer becomes
-    one module of the ``ModuleList``."""
+    one module of the ``ModuleList``, its ``moe`` leaves (router and
+    expert stacks) included."""
     model = tr.LM(cfg, resolve_device(device))
-    for name, p in model.named_parameters():
-        arr = _leaf(tree, name)
-        if arr.shape != tuple(p.shape):
-            raise ValueError(f"{name}: shape {arr.shape}, the port has {tuple(p.shape)}")
-        p.copy_(torch.from_numpy(np.array(arr, np.float32)))
+    _copy_leaves(model, lambda name: _leaf(tree, name))
+    return model
+
+
+@torch.no_grad()
+def gnn_params_from_numpy(tree: dict, cfg: gnn.GNNConfig, *,
+                          device=DEFAULT_DEVICE) -> torch.nn.Module:
+    """The port's GNN module for ``cfg.arch`` from the JAX package's
+    parameter tree (``gnn.init_params``' nested dict, one dict per layer
+    in the ``layers`` list), as numpy arrays: parameter ``layers.<i>.a.b``
+    is ``tree["layers"][i]["a"]["b"]``."""
+    model = gnn.MODULES[cfg.arch](cfg, resolve_device(device))
+    _copy_leaves(model, lambda name: np.asarray(_walk(tree, name.split("."), name)))
     return model
 
 
 def adamw_state_from_numpy(state: dict, model: tr.LM) -> dict:
     """The port's AdamW state (moments in ``model.parameters()`` order, on
-    the model's device) from the JAX package's ``{"mu", "nu", "step"}``."""
+    the model's device) from the JAX package's ``{"mu", "nu", "step"}`` of
+    an LM, dense or MoE."""
     names = [name for name, _ in model.named_parameters()]
     device = next(model.parameters()).device
     moments = {

@@ -1,4 +1,4 @@
-"""The node mesh of the partitioned engine.
+"""The node mesh of the partitioned engine, and the MoE layer's group count.
 
 :func:`node_mesh` builds the 1-D mesh the partitioned dual-simulation
 engine splits chi's node axis over (DESIGN.md Sect. 7): block w of the
@@ -73,3 +73,15 @@ def node_mesh(n_devices: int | None = None, *, device=DEFAULT_DEVICE) -> NodeMes
     if n < 1:
         raise ValueError(f"need at least one host device, got {n}")
     return NodeMesh((torch.device("cpu"),) * n)
+
+
+def group_count(name: str, dim: int) -> int:
+    """Number of shard groups the logical axis ``name`` would split ``dim``
+    into under the active rules (1 outside a rule context).  Used by the MoE
+    layer to block its dispatch into shard-local groups.
+
+    The port has no logical-axis rule context yet (the JAX package's
+    ``logical_axis_rules``), so every call is outside one and returns 1.
+    """
+    del name, dim
+    return 1

@@ -1,4 +1,4 @@
-"""End-to-end training entry point of the LM family.
+"""End-to-end training entry point of the LM family (dense and MoE).
 
 Wires together: config registry -> parameters on the device -> deterministic
 data pipeline -> train step -> async checkpointing -> restart policy +
@@ -65,7 +65,8 @@ def _state(model: torch.nn.Module, opt_state: dict) -> dict:
 
 def main(argv: list[str] | None = None) -> list[Attempt]:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="internlm2-1.8b", choices=configs.ARCH_IDS)
+    ap.add_argument("--arch", default="internlm2-1.8b",
+                    choices=[a for a in configs.ARCH_IDS if configs.get(a).family == "lm"])
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--batch", type=int, default=8)

@@ -1,9 +1,10 @@
-"""Decoder-only LM family, the dense path: GQA transformers.
+"""Decoder-only LM family: dense GQA transformers and MoE variants.
 
-Covers the dense LM architectures of the JAX package (internlm2-1.8b,
-qwen3-8b, yi-6b): grouped-query attention, RoPE, optional QK-norm (qwen3),
-optional sliding-window attention, SwiGLU FFN.  The token-choice MoE block
-of the JAX package is not ported yet: a config with ``moe`` set raises.
+Covers the LM architectures of the JAX package (internlm2-1.8b, qwen3-8b,
+yi-6b, olmoe-1b-7b, mixtral-8x7b): grouped-query attention, RoPE, optional
+QK-norm (qwen3), optional sliding-window attention (mixtral), SwiGLU FFN,
+and top-k token-choice MoE with group-local sort-based dispatch
+(:func:`moe_block`).
 
 Parameters live in an :class:`LM` module (a ``ModuleList`` of layers, f32
 masters); the functions below read them by attribute, so they take either
@@ -11,7 +12,9 @@ the module or :func:`cast_params`' copy of it in the activation dtype.
 Attention and the loss are plain torch products, in the JAX package's
 formulation: f32 logits from the activations, a -1e30 mask with a -1e9
 floor on the running max, the probabilities cast back to the activation
-dtype before the PV product.
+dtype before the PV product.  The MoE block is plain torch too, as the
+JAX package's is plain ``jnp``: a stable sort, ``index_put`` and batched
+expert products.
 """
 from __future__ import annotations
 
@@ -22,9 +25,11 @@ import types
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.distributed.ctx import group_count
 
 MASK_VALUE = -1e30  # additive bias of a masked (query, key) pair
 MAX_FLOOR = -1e9  # floor of the running max: a fully masked row gets p = 0
@@ -123,27 +128,37 @@ class MLP(nn.Module):
         self.w_down = _empty((f, d), cfg, device)
 
 
+class MoE(nn.Module):
+    """The router ``[d, E]`` and the experts' SwiGLU weights, stacked on a
+    leading expert axis: gate and up ``[E, d, fe]``, down ``[E, fe, d]``."""
+
+    def __init__(self, cfg: LMConfig, device):
+        super().__init__()
+        d, e, fe = cfg.d_model, cfg.moe.n_experts, cfg.moe.d_expert
+        self.router = _empty((d, e), cfg, device)
+        self.w_gate = _empty((e, d, fe), cfg, device)
+        self.w_up = _empty((e, d, fe), cfg, device)
+        self.w_down = _empty((e, fe, d), cfg, device)
+
+
 class Layer(nn.Module):
     def __init__(self, cfg: LMConfig, device):
         super().__init__()
         self.attn = Attention(cfg, device)
         self.ln1 = _ones(cfg.d_model, cfg, device)
         self.ln2 = _ones(cfg.d_model, cfg, device)
-        self.mlp = MLP(cfg, device)
+        if cfg.moe is not None:
+            self.moe = MoE(cfg, device)
+        else:
+            self.mlp = MLP(cfg, device)
 
 
 class LM(nn.Module):
-    """The parameters of a dense LM, uninitialised (``init_params`` draws
+    """The parameters of an LM, uninitialised (``init_params`` draws
     them; ``convert.lm_params_from_numpy`` copies the JAX package's)."""
 
     def __init__(self, cfg: LMConfig, device):
         super().__init__()
-        if cfg.moe is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: the MoE block (moe_block) is not ported yet; it "
-                "comes with the MoE slice of the port (ctx.group_count and the "
-                "olmoe / mixtral configs)"
-            )
         self.embed = _empty((cfg.vocab, cfg.d_model), cfg, device)
         self.unembed = _empty((cfg.d_model, cfg.vocab), cfg, device)
         self.ln_f = _ones(cfg.d_model, cfg, device)
@@ -153,13 +168,16 @@ class LM(nn.Module):
 @torch.no_grad()
 def init_params(cfg: LMConfig, seed: int = 0, *, device=DEFAULT_DEVICE) -> LM:
     """A random LM: every matrix ``normal / sqrt(fan_in)`` from a
-    ``torch.Generator`` on ``device`` seeded with ``seed``, norms at one."""
+    ``torch.Generator`` on ``device`` seeded with ``seed``, norms at one.
+    A matrix is ``[fan_in, fan_out]``, an expert stack ``[E, fan_in,
+    fan_out]`` (``d`` for gate and up, ``d_expert`` for down), and the
+    embedding ``[vocab, d]`` has fan-in ``d``."""
     device = resolve_device(device)
     model = LM(cfg, device)
     gen = torch.Generator(device=device).manual_seed(seed)
     for name, p in model.named_parameters():
-        if p.dim() == 2:  # [fan_in, fan_out], and the embedding [vocab, d]
-            fan_in = cfg.d_model if name == "embed" else p.shape[0]
+        if p.dim() >= 2:
+            fan_in = cfg.d_model if name == "embed" else p.shape[-2]
             p.normal_(generator=gen).div_(math.sqrt(fan_in))
     return model
 
@@ -347,14 +365,117 @@ def swiglu(p, x: torch.Tensor, dtype) -> torch.Tensor:
     return (g * u) @ p.w_down.to(dtype)
 
 
+@dataclasses.dataclass(frozen=True)
+class Dispatch:
+    """Where :func:`moe_block` sends each ``(token, k)`` slot of a group,
+    the slots sorted by expert (stably, so by token within an expert):
+    all ``[G, tl*k]`` but ``counts [G, E]``."""
+
+    expert: torch.Tensor  # int64 expert id of each sorted slot
+    token: torch.Tensor  # int64 token (within its group) of each sorted slot
+    weight: torch.Tensor  # renormalised router weight, activation dtype
+    pos: torch.Tensor  # int64 slot within (group, expert); >= cap is dropped
+    counts: torch.Tensor  # int64 slots routed to each expert
+    cap: int  # expert capacity per group
+
+    @property
+    def kept(self) -> torch.Tensor:
+        """bool ``[G, tl*k]``: the slots inside their expert's capacity."""
+        return self.pos < self.cap
+
+
+def route(cfg: LMConfig, router: torch.Tensor, xg: torch.Tensor):
+    """The router of :func:`moe_block` over ``xg [G, tl, d]``: (its
+    softmax ``probs [G, tl, E]`` in f32, the :class:`Dispatch`).  Profiler
+    ranges ``moe_router`` and ``moe_sort`` mark its two halves."""
+    m = cfg.moe
+    g_, tl, _ = xg.shape
+    k, e = m.top_k, m.n_experts
+    tkl = tl * k
+    with record_function("moe_router"):
+        gate_logits = xg.to(torch.float32) @ router.to(torch.float32)
+        probs = torch.softmax(gate_logits, dim=-1)  # [G, tl, E]
+        topw, topi = torch.topk(probs, k, dim=-1)  # [G, tl, K]
+        topw = topw / torch.sum(topw, dim=-1, keepdim=True)
+
+    with record_function("moe_sort"):
+        e_flat = topi.reshape(g_, tkl)
+        w_flat = topw.reshape(g_, tkl).to(cfg.dtype)
+        order = torch.sort(e_flat, dim=-1, stable=True).indices
+        e_s = torch.gather(e_flat, -1, order)  # [G, TKl]
+        tok_s = order // k  # slot i*k + j belongs to token i
+        w_s = torch.gather(w_flat, -1, order)
+
+        counts = torch.zeros((g_, e), dtype=torch.int64, device=xg.device)
+        counts.scatter_add_(1, e_s, torch.ones_like(e_s))
+        starts = torch.cumsum(counts, dim=-1) - counts
+        pos = torch.arange(tkl, device=xg.device)[None] - torch.gather(starts, -1, e_s)
+    cap = max(int(math.ceil(tl * k / e * m.capacity_factor)), k)
+    return probs, Dispatch(e_s, tok_s, w_s, pos, counts, cap)
+
+
+def moe_block(cfg: LMConfig, p, x: torch.Tensor, groups: int | None = None):
+    """Token-choice top-k MoE with *group-local* sort-based dispatch.
+
+    The token stream is blocked into ``G`` shard-local groups (G = the batch
+    sharding degree from the logical-axis context; 1 in the port, which has
+    none yet).  Within each group: sort the (token, k) slots by expert,
+    derive each slot's position in its expert from the sorted prefix,
+    scatter into a ``[E, C_local, d]`` buffer (out-of-capacity slots
+    dropped: only the kept slots are written), run the expert SwiGLUs
+    batched over ``[G, E]``, gather back (a dropped slot reads as 0) and
+    weight-combine.  Returns (output, Switch load-balance aux loss).
+    Profiler ranges ``moe_dispatch``, ``moe_experts`` and ``moe_combine``
+    mark its stages after :func:`route`'s.
+    """
+    m = cfg.moe
+    b, s, d = x.shape
+    t = b * s
+    e = m.n_experts
+    g_ = groups if groups is not None else group_count("batch", t)
+    tl = t // g_  # tokens per group
+    xg = x.reshape(g_, tl, d)
+    probs, disp = route(cfg, p.router, xg)
+
+    with record_function("moe_dispatch"):
+        keep = disp.kept
+        gi = torch.arange(g_, device=x.device)[:, None].expand_as(disp.expert)[keep]
+        ek, pk, tk = disp.expert[keep], disp.pos[keep], disp.token[keep]
+        buf = torch.zeros((g_, e, disp.cap, d), dtype=cfg.dtype, device=x.device)
+        buf = buf.index_put((gi, ek, pk), xg[gi, tk].to(cfg.dtype), accumulate=True)
+
+    with record_function("moe_experts"):
+        gact = F.silu(torch.einsum("gecd,edf->gecf", buf, p.w_gate.to(cfg.dtype)))
+        u = torch.einsum("gecd,edf->gecf", buf, p.w_up.to(cfg.dtype))
+        ye = torch.einsum("gecf,efd->gecd", gact * u, p.w_down.to(cfg.dtype))
+
+    with record_function("moe_combine"):
+        vals = ye[gi, ek, pk] * disp.weight[keep][:, None]  # dropped slots add 0
+        yt = ye.new_zeros((g_, tl, d)).index_put((gi, tk), vals, accumulate=True)
+
+    # load-balance aux loss (Switch): E * sum_e f_e * P_e
+    frac = torch.sum(disp.counts, dim=0).to(torch.float32) / (g_ * tl * m.top_k)
+    pmean = torch.mean(probs, dim=(0, 1))
+    aux = e * torch.sum(frac * pmean)
+    return yt.reshape(b, s, d), aux
+
+
 # --------------------------------------------------------------------- #
 # forward passes
 # --------------------------------------------------------------------- #
+def _ffn(cfg: LMConfig, lp, hin) -> tuple[torch.Tensor, torch.Tensor]:
+    """The layer's feed-forward half: (output, aux loss; 0 for a dense FFN)."""
+    if cfg.moe:
+        return moe_block(cfg, lp.moe, hin)
+    return swiglu(lp.mlp, hin, cfg.dtype), torch.zeros((), dtype=torch.float32,
+                                                        device=hin.device)
+
+
 def _layer_fwd(cfg: LMConfig, lp, x, positions):
     a, _ = attention(cfg, lp.attn, rmsnorm(x, lp.ln1, cfg.norm_eps), positions)
     x = x + a
-    hin = rmsnorm(x, lp.ln2, cfg.norm_eps)
-    return x + swiglu(lp.mlp, hin, cfg.dtype)
+    y, aux = _ffn(cfg, lp, rmsnorm(x, lp.ln2, cfg.norm_eps))
+    return x + y, aux
 
 
 def _positions(tokens: torch.Tensor) -> torch.Tensor:
@@ -366,18 +487,21 @@ def forward(cfg: LMConfig, params, tokens: torch.Tensor) -> tuple[torch.Tensor, 
     """Teacher-forced forward: tokens [B, S] -> (hidden [B, S, d], aux).
 
     The unembedding is applied separately (chunked, in the loss / serving
-    head) so the full [B, S, V] logits tensor is never materialized.  The
-    dense path has no auxiliary loss: ``aux`` is a zero.
+    head) so the full [B, S, V] logits tensor is never materialized.
+    ``aux`` is the MoE load-balance loss averaged over the layers (0 for a
+    dense model).
     """
     positions = _positions(tokens)
     x = params.embed.to(cfg.dtype)[tokens]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in params.layers:
         if cfg.remat:
-            x = checkpoint(_layer_fwd, cfg, lp, x, positions, use_reentrant=False)
+            x, a = checkpoint(_layer_fwd, cfg, lp, x, positions, use_reentrant=False)
         else:
-            x = _layer_fwd(cfg, lp, x, positions)
+            x, a = _layer_fwd(cfg, lp, x, positions)
+        aux = aux + a
     x = rmsnorm(x, params.ln_f, cfg.norm_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux / cfg.n_layers
 
 
 def logits_of(cfg: LMConfig, params, hidden: torch.Tensor) -> torch.Tensor:
@@ -454,8 +578,7 @@ def prefill_step(cfg: LMConfig, params, tokens: torch.Tensor) -> tuple[torch.Ten
             cfg, lp.attn, rmsnorm(x, lp.ln1, cfg.norm_eps), positions
         )
         x = x + a
-        hin = rmsnorm(x, lp.ln2, cfg.norm_eps)
-        x = x + swiglu(lp.mlp, hin, cfg.dtype)
+        x = x + _ffn(cfg, lp, rmsnorm(x, lp.ln2, cfg.norm_eps))[0]
         if win is not None:
             k, v = k[:, -win:], v[:, -win:]
         ks.append(k)
@@ -502,8 +625,7 @@ def decode_step(
             k_pos=k_pos,
         )
         x = x + a
-        hin = rmsnorm(x, lp.ln2, cfg.norm_eps)
-        x = x + swiglu(lp.mlp, hin, cfg.dtype)
+        x = x + _ffn(cfg, lp, rmsnorm(x, lp.ln2, cfg.norm_eps))[0]
         # roll the cache: drop oldest position, append the new one
         k_c.append(k_new[:, 1:])
         v_c.append(v_new[:, 1:])

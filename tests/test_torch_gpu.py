@@ -2,10 +2,12 @@
 segmented OR, the two packed boolean products and the segment sum) against
 their plain PyTorch versions, the query path on the card (the edge
 engines, the partitioned engine and the dense tier) against the same path
-on the CPU, a two-replica ``AsyncServer`` on the card, and the LM's
-train step, attention, decode and ``launch.train`` on the card against
-the CPU.  A CUDA kernel has no CPU mode, so without a card these skip.  The file imports neither JAX nor the JAX package, so it runs
-where JAX is not installed:
+on the CPU, a two-replica ``AsyncServer`` on the card, the LM's train
+step, attention, decode and ``launch.train`` on the card against the CPU,
+and the MoE LMs' train step and dispatch and the GNNs' ``GNNArch.step`` on
+the card against the CPU.  A CUDA kernel has no CPU mode, so without a
+card these skip.  The file imports neither JAX nor the JAX package, so it
+runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 """
@@ -590,3 +592,124 @@ def test_lm_launch_train_on_card_resumes(cuda_device, tmp_path):
     ckpt.save(str(tmp_path / "x"), 1, {"a": torch.ones(2, device=cuda_device)})
     restored, _ = ckpt.restore(str(tmp_path / "x"), like)
     assert restored["a"].device.type == "cuda" and bool(restored["a"].eq(1).all())
+
+
+# --------------------------------------------------------------------- #
+# the MoE LMs and the GNN family on the card against the CPU (tiny twins
+# of chip_smoke.py's phases 8a and 9a), f32 with TF32 off
+# --------------------------------------------------------------------- #
+def _held_to_step(card, cpu, before, grads, lr, wd, eps):
+    """Parameters after one AdamW step, card against CPU: rtol 1e-4, atol
+    1e-6 where the gradient is zero or above 100 x eps; between the two,
+    where AdamW's first step ``g / (|g| + eps)`` turns f32 rounding into up
+    to ``lr``, within the step's bound ``lr (1 + wd |p|)``."""
+    for (name, p), q, p0, g in zip(card.named_parameters(), cpu.parameters(), before, grads):
+        p, q = p.detach().cpu(), q.detach()
+        well = (g.abs() > 100 * eps) | (g == 0)
+        torch.testing.assert_close(p[well], q[well], rtol=1e-4, atol=1e-6, msg=name)
+        bound = lr * (1 + wd * p0[~well].abs()) * (1 + 1e-4)
+        assert bool(((p[~well] - p0[~well]).abs() <= bound).all()), name
+
+
+def _moe_cfg(arch):
+    from repro_torch import configs
+
+    cfg = configs.get(arch).reduced()
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=1.0))
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mixtral-8x7b"])
+def test_moe_train_step_on_card_matches_cpu(cuda_device, no_tf32, arch):
+    import copy
+
+    from repro_torch.launch import train
+    from repro_torch.models import steps
+    from repro_torch.models import transformer as tr
+    from repro_torch.optimizer import adamw
+
+    cfg = _moe_cfg(arch)
+    cpu = tr.init_params(cfg, 0, device="cpu")
+    card = copy.deepcopy(cpu).to(cuda_device)
+    before = [p.detach().clone() for p in cpu.parameters()]
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab, (4, 32)),
+                           dtype=torch.int32)
+    grads = torch.autograd.grad(tr.loss_fn(cfg, cpu, {"tokens": toks, "labels": toks}),
+                                list(cpu.parameters()))
+    step = steps.make_train_step(lambda p, b: tr.loss_fn(cfg, p, b), train.OPT_CFG)
+    out = []
+    for model, dev in ((card, cuda_device), (cpu, "cpu")):
+        t = toks.to(dev)
+        out.append(step(model, adamw.init(list(model.parameters())),
+                        {"tokens": t, "labels": t}))
+    for key in ("loss", "grad_norm", "lr"):
+        torch.testing.assert_close(out[0][key].cpu(), out[1][key], rtol=1e-4, atol=0)
+    _held_to_step(card, cpu, before, grads, float(out[1]["lr"]),
+                  train.OPT_CFG.weight_decay, train.OPT_CFG.eps)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mixtral-8x7b"])
+def test_moe_dispatch_on_card_matches_cpu(cuda_device, no_tf32, arch):
+    from repro_torch.models import transformer as tr
+
+    cfg = _moe_cfg(arch)
+    moe = tr.init_params(cfg, 1, device="cpu").layers[0].moe
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal((2, 64, cfg.d_model),
+                                                                 dtype=np.float32))
+    want = tr.route(cfg, moe.router, x.reshape(1, 128, -1))[1]
+    got = tr.route(cfg, moe.router.to(cuda_device), x.reshape(1, 128, -1).to(cuda_device))[1]
+    for f in ("expert", "token", "pos", "counts", "kept"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    assert not bool(want.kept.all())  # capacity 1.0 drops slots here
+    y_cpu, aux_cpu = tr.moe_block(cfg, moe, x)
+    y, aux = tr.moe_block(cfg, moe.to(cuda_device), x.to(cuda_device))
+    torch.testing.assert_close(y.detach().cpu(), y_cpu.detach(), rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(aux.detach().cpu(), aux_cpu.detach(), rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("arch_id", ["gatedgcn", "gat-cora", "pna", "schnet"])
+@pytest.mark.parametrize("cell_name", ["full_graph_sm", "molecule"])
+def test_gnn_step_on_card_matches_cpu(cuda_device, no_tf32, arch_id, cell_name):
+    import copy
+
+    from repro_torch import configs
+    from repro_torch.configs import base
+    from repro_torch.models import gnn
+    from repro_torch.optimizer import adamw
+
+    arch = base.GNNArch(arch_id, configs.get(arch_id).reduced())
+    cell = arch.cells()[cell_name]
+    cfg = arch.cell_cfg(cell)
+    rng = np.random.default_rng(0)
+    ex = cell.extras
+    if cell_name == "molecule":
+        g, per = ex["n_graphs"], 3
+        n, e = g * per, g * 4
+        base_ = np.repeat(np.arange(g) * per, 4)
+        edges = np.stack([rng.integers(0, per, e) + base_, rng.integers(0, per, e) + base_], 1)
+        feat = (rng.integers(1, 10, n).astype(np.int32) if arch_id == "schnet"
+                else rng.standard_normal((n, ex["d_feat"]), dtype=np.float32))
+        b = {"feat": feat, "labels": rng.standard_normal(g, dtype=np.float32),
+             "node_graph": (np.arange(n) // per).astype(np.int32),
+             "positions": rng.standard_normal((n, 3), dtype=np.float32)}
+    else:
+        n, e = 80, 300
+        edges = rng.integers(0, n, (e, 2))
+        b = {"feat": rng.standard_normal((n, ex["d_feat"]), dtype=np.float32),
+             "labels": rng.integers(0, ex["n_out"], n).astype(np.int32),
+             "node_graph": np.zeros(n, np.int32)}
+    b.update(edges=edges.astype(np.int32), edge_mask=rng.random(e) > 0.1)
+    b = {k: torch.as_tensor(v) for k, v in b.items()}
+    cpu = gnn.init_params(cfg, 0, device="cpu")
+    card = copy.deepcopy(cpu).to(cuda_device)
+    before = [p.detach().clone() for p in cpu.parameters()]
+    lb = dict(b, n_graphs=ex["n_graphs"])
+    lb.setdefault("positions", torch.zeros((n, 3)))
+    grads = torch.autograd.grad(gnn.loss_fn(cfg, cpu, lb), list(cpu.parameters()))
+    out = []
+    for model, dev in ((card, cuda_device), (cpu, "cpu")):
+        state = {"params": model, "opt": adamw.init(list(model.parameters()))}
+        out.append(arch.step(cell)(state, {k: v.to(dev) for k, v in b.items()})[1])
+    for key in ("loss", "grad_norm", "lr"):
+        torch.testing.assert_close(out[0][key].cpu(), out[1][key], rtol=1e-4, atol=0)
+    _held_to_step(card, cpu, before, grads, float(out[1]["lr"]), arch.opt.weight_decay,
+                  arch.opt.eps)

@@ -248,13 +248,16 @@ def test_init_params_scale_and_seed():
 
 
 def test_moe_config_raises():
-    _, cfg = _tiny(moe=True)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tr.init_params(cfg, 0, device="cpu")
-    ref_cfg, _ = _tiny(moe=True)
-    tree = jax.tree.map(np.asarray, ref_tr.init_params(ref_cfg, jax.random.PRNGKey(0)))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        convert.lm_params_from_numpy(tree, cfg, device="cpu")
+    """An MoE config and a dense parameter tree do not mix: converting the
+    JAX package's dense tree for an MoE config, or its MoE tree for a
+    dense config, raises and names the missing leaf."""
+    ref_dense, dense = _tiny()
+    ref_moe, moe = _tiny(moe=True)
+    for ref_cfg, cfg, missing in ((ref_dense, moe, "moe"), (ref_moe, dense, "mlp")):
+        tree = jax.tree.map(np.asarray, ref_tr.init_params(ref_cfg, jax.random.PRNGKey(0)))
+        with pytest.raises(ValueError, match=missing):
+            convert.lm_params_from_numpy(tree, cfg, device="cpu")
+    assert tr.init_params(moe, 0, device="cpu").layers[0].moe.w_gate.shape == (4, 64, 32)
 
 
 def test_entry_points_default_to_the_card():
