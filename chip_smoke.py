@@ -120,8 +120,20 @@ failure fatal:
    gatedgcn (16 x 70) on ``minibatch_lg`` blocks that ``NeighborSampler``
    draws from (b)'s graph, 10 steps, the sampler's host seconds apart; (d)
    all four on ``full_graph_sm`` and pna and schnet on ``molecule`` at full
-   width, 3 steps each.  Phases 8 and 9 reach no TPU kernel: the launch
-   counts are zeroed before each and must stay zero.
+   width, 3 steps each;
+10. the recsys family on the card: (a) dcn-v2's ``reduced()`` config,
+   f32, TF32 off, card == CPU within rtol 1e-4 (forward, loss, gradients,
+   one AdamW step, ``embedding_bag`` sum and mean, the retrieval top-100);
+   (b) dcn-v2 at full Criteo width (33,762,577 x 16 table) trains 10 steps
+   of ``train_batch`` (65,536 examples, 4 microbatches): step time,
+   examples/s, model TFLOP/s, peak memory, one step profiled; (c)
+   ``serve_p99``, ``serve_bulk`` and ``retrieval_cand`` (1 query x 1M x 512
+   candidates, top-100 checked against ``torch.topk`` on the CPU); (d) the
+   1x1 mesh over the card: 10b's state placed by ``state_shardings`` takes
+   one step equal bit for bit to the unsharded step, is saved and restored
+   with ``shardings=``, and holds the bytes the dry-run's accounting gives.
+   Phases 8, 9 and 10 reach no TPU kernel: the launch counts are zeroed
+   before each and must stay zero.
 
 The last three lines are the card's name and power limit, a JSON line of
 kernel records, and ``{"ok": true, "device": {...}}``.
@@ -2767,6 +2779,370 @@ def phase_gnn(seed: int) -> None:
     no_launches("9", t_phase)
 
 
+# --------------------------------------------------------------------- #
+# phase 10: the recsys family (DCN-v2 at full Criteo width)
+# --------------------------------------------------------------------- #
+def rec_tree(cfg, seed: int) -> dict:
+    """DCN-v2 parameters in the JAX package's layout as numpy, drawn as
+    ``init_params`` draws them from a seeded generator: the table ``normal
+    * 0.01``, every weight ``normal / sqrt(fan_in)``, biases zero (zero
+    biases would hide a bias's gradient path, so they are ``normal *
+    0.01`` here)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def dense(din, dout):
+        return {"w": (rng.standard_normal((din, dout), dtype=np.float32)
+                      / np.float32(np.sqrt(din))),
+                "b": rng.standard_normal(dout, dtype=np.float32) * np.float32(0.01)}
+
+    d = cfg.d_interact
+    widths = (d, *cfg.mlp)
+    return {"table": rng.standard_normal((cfg.total_vocab, cfg.embed_dim),
+                                         dtype=np.float32) * np.float32(0.01),
+            "cross": [dense(d, d) for _ in range(cfg.n_cross)],
+            "mlp": [dense(a, b) for a, b in zip(widths[:-1], widths[1:])],
+            "head": dense(widths[-1], 1)}
+
+
+def rec_batch(cfg, batch: int, seed: int, step: int = 0) -> dict:
+    """``pipeline.recsys_batches``' batch ``step`` for ``cfg``, as numpy."""
+    import itertools
+
+    from repro_torch.data import pipeline
+
+    it = pipeline.recsys_batches(batch=batch, n_dense=cfg.n_dense, vocab_sizes=cfg.vocab_sizes,
+                                 seed=seed, shard=pipeline.ShardSpec(0, 1), start_step=step)
+    return next(itertools.islice(it, 0, None))
+
+
+def phase_recsys_parity(seed: int) -> None:
+    """Phase 10a: dcn-v2's ``reduced()`` config in f32 with TF32 off, on the
+    card and on the CPU from the same numpy-seeded parameters and batch:
+    forward logits, loss and every gradient within rtol 1e-4 (atol 1e-6),
+    one AdamW step (``RecsysArch.step``, two microbatches) as
+    :func:`check_step` holds it, ``embedding_bag`` sum and mean, and the
+    retrieval top-100, compared as sets of indices, or by their scores
+    where scores tie."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs, convert
+    from repro_torch.configs import base
+    from repro_torch.models import recsys
+    from repro_torch.optimizer import adamw
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    spec = configs.get("dcn-v2")
+    cfg = spec.reduced()
+    arch = base.RecsysArch(cfg)
+    tree = rec_tree(cfg, seed)
+    b = rec_batch(cfg, 64, seed)
+    models = {dev: convert.recsys_params_from_numpy(tree, cfg, device=dev)
+              for dev in (CARD, "cpu")}
+    batches = {dev: {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+               for dev in (CARD, "cpu")}
+    out = {}
+    for dev, model in models.items():
+        logits = recsys.forward(cfg, model, batches[dev])
+        loss = recsys.loss_fn(cfg, model, batches[dev])
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        out[dev] = (logits.detach().cpu(), float(loss.detach()), [g.cpu() for g in grads])
+    (lc, loss_c, gc), (lp, loss_p, gp) = out[CARD], out["cpu"]
+    if not torch.allclose(lc, lp, rtol=1e-4, atol=1e-6):
+        raise AssertionError(f"dcn-v2 logits card != cpu: {float((lc - lp).abs().max()):.3g}")
+    if not np.isclose(loss_c, loss_p, rtol=1e-4, atol=0):
+        raise AssertionError(f"dcn-v2 loss card {loss_c} != cpu {loss_p}")
+    names = [n for n, _ in models["cpu"].named_parameters()]
+    for name, a, c in zip(names, gc, gp):
+        if not torch.allclose(a, c, rtol=1e-4, atol=1e-6):
+            raise AssertionError(f"dcn-v2 gradient {name} card != cpu: "
+                                 f"{float((a - c).abs().max()):.3g}")
+    cell = dc.replace(arch.cells()["train_batch"], batch=64, microbatches=2)
+    before = [p.detach().clone() for p in models["cpu"].parameters()]
+    metrics = {}
+    for dev, model in models.items():
+        state = {"params": model, "opt": adamw.init(list(model.parameters()))}
+        metrics[dev] = {k: float(v) for k, v in arch.step(cell)(state, batches[dev])[1].items()}
+    for key in ("loss", "grad_norm"):
+        a, c = metrics[CARD][key], metrics["cpu"][key]
+        if not np.isfinite(a) or not np.isclose(a, c, rtol=1e-4, atol=0):
+            raise AssertionError(f"dcn-v2 step {key}: card {a} != cpu {c}")
+    step_err, _, bounded = check_step("dcn-v2 step", models[CARD], models["cpu"], before, gp,
+                                      metrics["cpu"]["lr"], arch.opt.weight_decay,
+                                      arch.opt.eps)
+    rng = np.random.default_rng(seed + 1)
+    vals = rng.integers(0, cfg.total_vocab, 500).astype(np.int32)
+    segs = np.sort(rng.integers(0, 70, 500)).astype(np.int32)  # some bags empty
+    bag_err = 0.0
+    for mode in ("sum", "mean"):
+        bags = [recsys.embedding_bag(models[dev].table.detach(),
+                                     torch.as_tensor(vals, device=dev),
+                                     torch.as_tensor(segs, device=dev), 80, mode=mode).cpu()
+                for dev in (CARD, "cpu")]
+        if not torch.allclose(bags[0], bags[1], rtol=1e-4, atol=1e-6):
+            raise AssertionError(f"embedding_bag {mode} card != cpu")
+        bag_err = max(bag_err, float((bags[0] - bags[1]).abs().max()))
+    cands = rng.standard_normal((5000, cfg.mlp[-1]), dtype=np.float32)
+    rb = {k: v[:3] for k, v in b.items() if k != "labels"}
+    res = {}
+    for dev, model in models.items():
+        with torch.no_grad():
+            scores, top = recsys.retrieval_score(
+                cfg, model, {**{k: torch.as_tensor(v, device=dev) for k, v in rb.items()},
+                             "candidates": torch.as_tensor(cands, device=dev)})
+        res[dev] = (scores.cpu(), top.cpu())
+    (sc, tc), (sp, tp) = res[CARD], res["cpu"]
+    if not torch.allclose(sc, sp, rtol=1e-4, atol=1e-6):
+        raise AssertionError("retrieval scores card != cpu")
+    same = 0
+    for q in range(tc.shape[0]):
+        a, c = set(tc[q].tolist()), set(tp[q].tolist())
+        if a == c:
+            same += 1
+            continue
+        # a differing index must tie: its score on the CPU equals the
+        # 100th best score within the scores' tolerance
+        kth = float(sp[q, tp[q]].min())
+        for i in a ^ c:
+            if not np.isclose(float(sp[q, i]), kth, rtol=1e-4, atol=1e-6):
+                raise AssertionError(f"retrieval top-100 of query {q} differs at {i}")
+    log(f"phase 10a: dcn-v2 reduced() ({sum(p.numel() for p in models['cpu'].parameters())} "
+        f"parameters), f32, TF32 off, card == cpu within rtol 1e-4, atol 1e-6: logits "
+        f"(max abs {float((lc - lp).abs().max()):.3g}), loss {loss_c:.6f} vs {loss_p:.6f}, "
+        f"{len(names)} gradients; one AdamW step (2 microbatches) loss "
+        f"{metrics[CARD]['loss']:.6f}, parameters max abs {step_err:.3g} ({bounded} held "
+        f"to the step's bound); embedding_bag sum and mean max abs {bag_err:.3g}; "
+        f"retrieval top-100 over 5,000 candidates: {same} of {tc.shape[0]} queries the same "
+        f"set, the rest differ only in tied scores; seconds "
+        f"{time.perf_counter() - t_phase:.1f}")
+
+
+def phase_recsys_train(seed: int, steps_n: int = 10):
+    """Phase 10b: dcn-v2 at full Criteo width (33,762,577 table rows x 16,
+    f32) trains ``steps_n`` steps of the ``train_batch`` cell (65,536
+    examples, 4 microbatches) through ``RecsysArch.step``, the batches from
+    ``pipeline.recsys_batches`` uploaded before the timed loop.  Logs the
+    step time (median of steps 3-9), examples/s, model TFLOP/s from
+    ``model_flops``, peak device memory, and one step profiled.  Returns
+    (spec, cell, state, a batch on the card)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import recsys
+    from repro_torch.optimizer import adamw
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    t_phase = time.perf_counter()
+    spec = configs.get("dcn-v2")
+    cfg, cell = spec.cfg, spec.cells()["train_batch"]
+    batches = [{k: torch.as_tensor(v, device=CARD)
+                for k, v in rec_batch(cfg, cell.batch, seed, s).items()}
+               for s in range(steps_n)]
+    reset_peak()
+    t0 = time.perf_counter()
+    model = recsys.init_params(cfg, seed, device=CARD)
+    state = {"params": model, "opt": adamw.init(list(model.parameters()))}
+    torch.cuda.synchronize()
+    made = time.perf_counter() - t0
+    step = spec.step(cell)
+    losses, seconds = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        losses.append(float(step(state, b)[1]["loss"]))
+        seconds.append(time.perf_counter() - t0)
+    peak = max_allocated()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"dcn-v2 training: non-finite loss {losses}")
+    step_s = statistics.median(seconds[3:10])
+    flops = spec.model_flops(cell)
+    state_bytes = sum(p.numel() * 4 * 4 for p in model.parameters())
+    profile = kernel_breakdown(lambda: float(step(state, batches[-1])[1]["loss"]), top=8)
+    log(f"phase 10b: dcn-v2 train_batch ({card_line()}): {cfg.total_vocab} x "
+        f"{cfg.embed_dim} table, {sum(p.numel() for p in model.parameters())} parameters "
+        f"(params, gradient and AdamW moments {state_bytes} bytes), {cell.batch} examples "
+        f"x {cell.microbatches} microbatches; made on the card in {made:.2f} s; losses "
+        f"{', '.join(f'{v:.4f}' for v in losses)}; step {step_s:.4f} s (median of steps "
+        f"3-9; first {seconds[0]:.4f} s), {cell.batch / step_s:.0f} examples/s, model "
+        f"{flops / step_s / 1e12:.3f} TFLOP/s ({flops:.4g} model FLOPs a step); peak device "
+        f"memory {peak} bytes; one step: {profile}; seconds "
+        f"{time.perf_counter() - t_phase:.1f}")
+    return spec, cell, state, batches[-1]
+
+
+def phase_recsys_serving(spec, model, seed: int) -> None:
+    """Phase 10c: ``serve_p99`` (512 examples) and ``serve_bulk`` (262,144)
+    through ``RecsysArch.step`` at full width, CUDA events (median of 25
+    and of 5 calls); ``retrieval_cand``: one query against 1,000,000 x 512
+    f32 candidates made on the card, top-100, checked against
+    ``torch.topk`` of the CPU copy of the same scores (the same set, or
+    the same scores where they tie)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    state = {"params": model}
+    lines = []
+    with torch.no_grad():
+        for name, reps in (("serve_p99", 25), ("serve_bulk", 5)):
+            cell = spec.cells()[name]
+            b = {k: torch.as_tensor(v, device=CARD)
+                 for k, v in rec_batch(spec.cfg, cell.batch, seed, 100).items() if k != "labels"}
+            fn = spec.step(cell)
+            p = fn(state, b)
+            if tuple(p.shape) != (cell.batch,) or not bool(((p >= 0) & (p <= 1)).all()):
+                raise AssertionError(f"{name}: bad probabilities")
+            ms = median_ms(lambda: fn(state, b), reps=reps, warmup=2)
+            lines.append(f"{name} ({cell.batch} examples) {ms:.4f} ms")
+        cell = spec.cells()["retrieval_cand"]
+        gen = torch.Generator(device=CARD).manual_seed(seed)
+        cands = torch.randn((cell.extras["n_candidates"], spec.cfg.mlp[-1]), generator=gen,
+                            device=CARD)
+        q = {k: torch.as_tensor(v, device=CARD)
+             for k, v in rec_batch(spec.cfg, 1, seed, 200).items() if k != "labels"}
+        b = {**q, "candidates": cands}
+        fn = spec.step(cell)
+        scores, top = fn(state, b)
+        ms = median_ms(lambda: fn(state, b), reps=10, warmup=2)
+        s_cpu = scores.cpu()
+        want = torch.topk(s_cpu, 100, dim=-1)
+        got = set(top[0].cpu().tolist())
+        exp = set(want.indices[0].tolist())
+        if got != exp:  # only ties may differ: the same 100 scores
+            if not torch.equal(torch.sort(s_cpu[0, sorted(got)]).values,
+                               torch.sort(want.values[0]).values):
+                raise AssertionError("retrieval top-100 != torch.topk of the CPU scores")
+        lines.append(f"retrieval_cand (1 query x {cell.extras['n_candidates']} x "
+                     f"{spec.cfg.mlp[-1]} candidates, top-100 == torch.topk on the CPU "
+                     f"copy{'' if got == exp else ' up to ties'}) {ms:.4f} ms")
+    del cands, b
+    free_card()
+    log(f"phase 10c ({card_line()}): {'; '.join(lines)}; seconds "
+        f"{time.perf_counter() - t_phase:.1f}")
+
+
+def phase_recsys_sharding(spec, cell, state, batch) -> None:
+    """Phase 10d: the 1x1 (data, model) mesh over the card
+    (``make_host_mesh``): 10b's state placed by ``state_shardings`` as
+    DTensors takes one step under the logical-axis rules, equal bit for
+    bit to the same step on the unsharded state; the sharded state saved
+    and restored with ``ckpt.restore(..., shardings=)`` onto the mesh,
+    values equal; the dry-run's per-device state bytes for that mesh
+    (``dryrun.shard_bytes``) equal to the bytes the card holds for the
+    placed state."""
+    import shutil
+    import tempfile
+
+    import torch
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.distributed import shard as sh
+    from repro_torch.distributed.ctx import logical_axis_rules
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_mod
+
+    t_phase = time.perf_counter()
+    mesh = mesh_mod.make_host_mesh()
+    try:
+        state_sh = spec.state_shardings(mesh, cell)
+        input_sh = spec.input_shardings(mesh, cell)
+        want_bytes = dryrun.shard_bytes(spec.abstract_state(cell), state_sh)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+
+        def place(t, ns):
+            return distribute_tensor(t.detach().clone(), mesh, ns.placements)
+
+        import copy
+
+        plain_model = state["params"]
+        model = copy.deepcopy(plain_model)  # a second copy, placed below
+        placed = sh.place({"params": model, "opt": {
+            "mu": [t.clone() for t in state["opt"]["mu"]],
+            "nu": [t.clone() for t in state["opt"]["nu"]],
+            "step": state["opt"]["step"].clone()}}, state_sh, place)
+        torch.cuda.synchronize()
+        held = sum(t.to_local().untyped_storage().nbytes()
+                   for _, t in sh.leaves_with_path(placed) if isinstance(t, DTensor))
+        grew = torch.cuda.memory_allocated() - before
+        if held != want_bytes:
+            raise AssertionError(f"the card holds {held} bytes of placed state, the dry-run's "
+                                 f"accounting {want_bytes}")
+        placed_batch = sh.place(dict(batch), input_sh, place)
+        step = spec.step(cell)
+        _, m_plain = step(state, batch)
+        with logical_axis_rules(mesh), implicit_replication():
+            _, m_sh = step(placed, placed_batch)
+        for key in ("loss", "grad_norm"):
+            a, c = m_sh[key], m_plain[key]
+            a = a.full_tensor() if isinstance(a, DTensor) else a
+            if not torch.equal(a, c):
+                raise AssertionError(f"sharded step {key} {float(a)} != unsharded {float(c)}")
+        for (name, p), q in zip(model.named_parameters(), plain_model.parameters()):
+            if not torch.equal(p.full_tensor(), q):
+                raise AssertionError(f"sharded step: {name} differs from the unsharded step")
+        for key in ("mu", "nu"):
+            for a, c in zip(placed["opt"][key], state["opt"][key]):
+                if not torch.equal(a.full_tensor(), c):
+                    raise AssertionError(f"sharded step: AdamW {key} differs")
+        (ROOT / "build").mkdir(exist_ok=True)
+        ckpt_dir = tempfile.mkdtemp(prefix="recsys_ckpt_", dir=ROOT / "build")
+        try:
+            tree = {"params": dict(model.named_parameters()), "opt": placed["opt"]}
+            t0 = time.perf_counter()
+            ckpt.save(ckpt_dir, 1, tree)
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            restored, _ = ckpt.restore(ckpt_dir, tree, shardings={
+                "params": state_sh["params"], "opt": state_sh["opt"]})
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+        by_path = dict(sh.leaves_with_path(tree))
+        for path, leaf in sh.leaves_with_path(restored):
+            want = by_path[path]
+            if (not isinstance(leaf, DTensor) or leaf.placements != want.placements
+                    or not torch.equal(leaf.full_tensor(), want.full_tensor())):
+                raise AssertionError(f"restored {path} differs from the saved state")
+        placements = sorted({str(ns.placements) for _, ns in sh.leaves_with_path(state_sh)})
+        log(f"phase 10d: 1x1 mesh {mesh}: state placed by state_shardings "
+            f"({', '.join(placements)}), {held} bytes held on the card == the dry-run's "
+            f"{want_bytes} per-device state bytes (the allocator grew {grew} bytes, its "
+            f"blocks rounded); one sharded step under the rules == the unsharded step bit "
+            f"for bit (loss {float(m_plain['loss']):.6f}, every parameter and moment); "
+            f"saved in {save_s:.2f} s, restored onto the mesh with shardings= in "
+            f"{restore_s:.2f} s, values equal; seconds {time.perf_counter() - t_phase:.1f}")
+    finally:
+        mesh_mod.release()
+    del placed, model
+    free_card()
+
+
+def phase_recsys(seed: int) -> None:
+    """Phase 10, the recsys family: 10a parity, 10b dcn-v2 training at full
+    width, 10c serving and retrieval, 10d sharding on the card; the launch
+    counts zeroed before and zero after."""
+    from repro_torch import kernels
+
+    log("phase 10: the recsys family")
+    t_phase = time.perf_counter()
+    kernels.reset_launches()
+    phase_recsys_parity(seed)
+    spec, cell, state, batch = phase_recsys_train(seed)
+    phase_recsys_serving(spec, state["params"], seed)
+    phase_recsys_sharding(spec, cell, state, batch)
+    del state, batch
+    free_card()
+    no_launches("10", t_phase)
+
+
 def best_of_two(fn, *args):
     """(the faster of two calls' host seconds, the last call's result)."""
     times = []
@@ -2837,6 +3213,7 @@ def main() -> int:
     phase_lm_serving(lm, batch=4, seq=512, decode_steps=32, seed=args.seed)
     phase_moe(args.seed)
     phase_gnn(args.seed)
+    phase_recsys(args.seed)
     log(f"total {time.perf_counter() - t_start:.1f}s")
     log(card_line())
     log(json.dumps({"kernels": records}))

@@ -13,9 +13,10 @@ hashes, and a ``COMMIT`` marker written last — a half-written checkpoint
 A tree is nested dicts (keys in sorted order, as the JAX package flattens
 them), lists and tuples, with tensors or numpy arrays as leaves.  Leaves
 are written, hashed and read on a small thread pool (file I/O and hashing
-release the interpreter lock).  ``restore`` places each leaf on the device
-of the matching leaf of ``like``; re-sharding onto a mesh waits for the
-port's sharding rules.
+release the interpreter lock).  A DTensor leaf is saved whole (gathered).
+``restore`` places each leaf on the device of the matching leaf of
+``like``, or, given ``shardings``, re-shards it onto whatever mesh the new
+job runs with (elastic restore), as a DTensor.
 """
 from __future__ import annotations
 
@@ -30,6 +31,9 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
+
+from repro_torch.distributed.shard import leaves_with_path
 
 _SAFE = re.compile(r"[^A-Za-z0-9_.-]")
 _IO_THREADS = 8
@@ -58,7 +62,10 @@ def _leaf_name(path: tuple) -> str:
 
 
 def _to_host(leaf: Any) -> np.ndarray:
-    """A host copy of a leaf that later in-place updates do not reach."""
+    """A host copy of a leaf that later in-place updates do not reach (a
+    DTensor's whole value)."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().to("cpu", copy=True).numpy()
     return np.array(leaf)
@@ -141,11 +148,14 @@ def restore(
     like: Any,
     *,
     step: int | None = None,
+    shardings: Any = None,
     verify: bool = True,
 ) -> tuple[Any, int]:
     """Load the latest (or given) committed step into the structure of
     ``like``: each leaf becomes a tensor on the device of ``like``'s leaf
-    (the CPU for a leaf that is not a tensor)."""
+    (the CPU for a leaf that is not a tensor), or, given ``shardings`` (a
+    tree of :class:`repro_torch.distributed.shard.NamedSharding` with
+    ``like``'s paths), a DTensor placed on its sharding's mesh."""
     steps = latest_steps(ckpt_dir)
     if not steps:
         raise FileNotFoundError(f"no committed checkpoints in {ckpt_dir}")
@@ -165,8 +175,14 @@ def restore(
     paths = [p for p, _ in _leaves(like)]
     arrays = dict(zip(paths, _pool_map(load, paths)))
 
+    by_path = dict(leaves_with_path(shardings)) if shardings is not None else None
+
     def place(path: tuple, leaf: Any) -> torch.Tensor:
+        host = torch.from_numpy(arrays[path])
+        if by_path is not None:
+            ns = by_path["/".join(str(k) for k in path)]
+            return distribute_tensor(host.to(ns.mesh.device_type), ns.mesh, ns.placements)
         device = leaf.device if isinstance(leaf, torch.Tensor) else "cpu"
-        return torch.from_numpy(arrays[path]).to(device)
+        return host.to(device)
 
     return _rebuild(like, place), step

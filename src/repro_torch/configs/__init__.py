@@ -1,8 +1,8 @@
 """Architecture registry: ``get(arch_id)`` returns an ArchSpec.
 
-The port holds the LM configs (dense and MoE) and the GNN configs; the
-recsys and dual-simulation configs of the JAX package come with their
-slices.
+The port holds every architecture of the JAX package: the LM configs
+(dense and MoE), the GNN configs, the recsys config and the
+dual-simulation workloads.
 """
 from __future__ import annotations
 
@@ -18,12 +18,15 @@ ARCH_IDS = [
     "gat-cora",
     "pna",
     "schnet",
+    "dcn-v2",
+    "dualsim-lubm",
+    "dualsim-dbpedia",
 ]
 
 
 def get(arch_id: str):
     if arch_id not in ARCH_IDS:
-        raise KeyError(f"unknown or not yet ported architecture {arch_id!r}; "
+        raise KeyError(f"unknown architecture {arch_id!r}; "
                        f"the port has {ARCH_IDS}")
     mod = importlib.import_module(
         f"repro_torch.configs.{arch_id.replace('-', '_').replace('.', '_')}"

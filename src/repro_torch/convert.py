@@ -1,7 +1,8 @@
 """Carry state across from the JAX package, handed over as numpy arrays.
 
 The query path's state is the graph and the device operands built from
-it; the LM's and the GNN's are their parameters and AdamW state.  These
+it; the LM's, the GNN's and the recsys model's are their parameters and
+AdamW state.  These
 functions rebuild that state in the port from plain arrays, so a test can
 feed identical inputs to both packages (JAX's PRNG cannot be reproduced in
 torch, so every model parity test starts both packages from the same
@@ -18,7 +19,7 @@ import torch
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.core.dualsim import Operands
 from repro_torch.core.graph import Graph
-from repro_torch.models import gnn
+from repro_torch.models import gnn, recsys
 from repro_torch.models import transformer as tr
 
 
@@ -132,6 +133,18 @@ def gnn_params_from_numpy(tree: dict, cfg: gnn.GNNConfig, *,
     in the ``layers`` list), as numpy arrays: parameter ``layers.<i>.a.b``
     is ``tree["layers"][i]["a"]["b"]``."""
     model = gnn.MODULES[cfg.arch](cfg, resolve_device(device))
+    _copy_leaves(model, lambda name: np.asarray(_walk(tree, name.split("."), name)))
+    return model
+
+
+@torch.no_grad()
+def recsys_params_from_numpy(tree: dict, cfg: recsys.RecsysConfig, *,
+                             device=DEFAULT_DEVICE) -> recsys.Recsys:
+    """The port's :class:`~repro_torch.models.recsys.Recsys` from the JAX
+    package's parameter tree (``recsys.init_params``' nested dict: the
+    table, one dict per cross and MLP layer in lists, the head), as numpy
+    arrays: parameter ``cross.<i>.w`` is ``tree["cross"][i]["w"]``."""
+    model = recsys.Recsys(cfg, resolve_device(device))
     _copy_leaves(model, lambda name: np.asarray(_walk(tree, name.split("."), name)))
     return model
 

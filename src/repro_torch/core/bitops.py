@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 WORD = 32
 
@@ -50,7 +51,12 @@ def pack(bits: torch.Tensor) -> torch.Tensor:
 def unpack(packed: torch.Tensor, n: int) -> torch.Tensor:
     """Inverse of :func:`pack`: ``packed[..., w] -> bool[..., n]``."""
     shifts = torch.arange(WORD, dtype=torch.int32, device=packed.device)
-    bits = (packed[..., None] >> shifts) & 1
+    words = packed[..., None]
+    if isinstance(packed, DTensor):  # DTensor's shift does not broadcast
+        words = words.expand(*packed.shape, WORD)
+        shifts = DTensor.from_local(shifts, packed.device_mesh,
+                                    [Replicate()] * packed.device_mesh.ndim)
+    bits = (words >> shifts) & 1
     bits = bits.reshape(packed.shape[:-1] + (packed.shape[-1] * WORD,))
     return bits[..., :n].to(torch.bool)
 

@@ -56,7 +56,9 @@ from typing import Callable
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.distributed import ctx
 from repro_torch.kernels.bitmm import kernel as bitmm_kernel
 from repro_torch.kernels.segsum import kernel as segsum_kernel
 from repro_torch.kernels.segsum import ref as segsum_ref
@@ -693,14 +695,18 @@ def _sweep_fixpoint(
     """The fixpoint driver: iterate ``sweep`` from ``init`` until chi stops
     changing (or ``max_sweeps``), reading convergence to the host once per
     sweep.  Counts sweeps as the reference's ``lax.while_loop`` does: the
-    last, unchanging sweep counts.  Returns (chi, n_sweeps)."""
+    last, unchanging sweep counts.  The sweep that reaches ``max_sweeps``
+    returns without the read (so ``max_sweeps=1`` reads nothing).
+    Returns (chi, n_sweeps)."""
     chi, it = init, 0
     while True:
         new = sweep(chi)
         it += 1
+        if max_sweeps is not None and it >= max_sweeps:
+            return new, it
         changed = _moved(new, chi)
         chi = new
-        if not changed or (max_sweeps is not None and it >= max_sweeps):
+        if not changed:
             return chi, it
 
 
@@ -884,6 +890,24 @@ def _column_shards(n_blocks: int, nlw: int, mesh) -> list:
     return shards
 
 
+def _sharded_block_words(frontier_p, src_b, dst_b, n_local: int):
+    """The packed words of every destination block, on DTensor blocks
+    ``[W, Eb]`` sharded along W: each shard reduces its own blocks against
+    the whole frontier (replicated first: the sweep's one broadcast of the
+    packed words) and holds their words, block-major, as its columns of
+    ``[V, W * n_local / 32]``."""
+    mesh = src_b.device_mesh
+    bpl = tuple(src_b.placements)
+    opl = [Shard(1) if isinstance(pl, Shard) else Replicate() for pl in bpl]
+
+    def local(f, src, dst):
+        return torch.cat([segsum_ref.segor_words(_edge_bits(f, src[i]), dst[i], n_local)
+                          for i in range(src.shape[0])], dim=1)
+
+    return ctx.local_map(local, opl, ((Replicate(),) * mesh.ndim, bpl, bpl), mesh)(
+        frontier_p, src_b, dst_b)
+
+
 def solve_partitioned(
     ops: Operands, *, max_sweeps: int | None = None,
     chi0: torch.Tensor | None = None, mesh=None,
@@ -933,6 +957,9 @@ def solve_partitioned(
         return segsum_ref.segor_words(msgs, ops.edge_dst_b[m][b], n_local)
 
     def propagate_blocks(frontier_p: torch.Tensor, m: int, blocks) -> torch.Tensor:
+        if isinstance(ops.edge_src_b[m] if ops.edge_src_b else None, DTensor):
+            return _sharded_block_words(frontier_p, ops.edge_src_b[m], ops.edge_dst_b[m],
+                                        n_local)
         return torch.cat([block_words(frontier_p, m, b) for b in blocks], dim=1)
 
     if mesh is None or not w:

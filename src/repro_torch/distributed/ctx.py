@@ -1,4 +1,20 @@
-"""The node mesh of the partitioned engine, and the MoE layer's group count.
+"""The node mesh of the partitioned engine, and the logical-axis sharding
+context of the model zoo.
+
+Model code annotates tensors with *logical* axes (``batch``, ``vocab``,
+``expert``, ...); the launcher activates a mapping to the axes of a
+:class:`torch.distributed.device_mesh.DeviceMesh` around a step
+(``with logical_axis_rules(mesh): step(state, batch)``).  Outside the
+context every annotation is a no-op, so the same model code runs unsharded
+in the CPU tests and on one card, and sharded (over DTensors) in the
+production dry-run.  Inside it :func:`constrain` redistributes a DTensor
+to the placements the rules give, :func:`group_count` blocks the MoE
+dispatch into shard-local groups, and two operations that DTensor would
+otherwise run by gathering a sharded operand whole run shard-local
+instead: :func:`lookup` (a row-sharded table's gather, as a masked
+partial sum) and :func:`segment_reduce` (a segment sum, max or min over
+sharded edges, as a partial reduction).  Every redistribution any of them
+makes is an explicit DTensor collective, which the dry-run counts.
 
 :func:`node_mesh` builds the 1-D mesh the partitioned dual-simulation
 engine splits chi's node axis over (DESIGN.md Sect. 7): block w of the
@@ -13,11 +29,15 @@ default), which run the same sharded sweep on one device.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.distributed import shard as sh
 
 NODE_AXIS = "nodes"  # mesh axis name chi's node dimension shards over
 
@@ -75,13 +95,208 @@ def node_mesh(n_devices: int | None = None, *, device=DEFAULT_DEVICE) -> NodeMes
     return NodeMesh((torch.device("cpu"),) * n)
 
 
+_STATE = threading.local()
+
+DEFAULT_RULES: dict[str, tuple[str, ...]] = {
+    "batch": ("pod", "data"),
+    "vocab": ("model",),
+    "heads": ("model",),
+    "ff": ("model",),
+    "expert": ("model",),
+    "expert_cap": ("data",),
+    "moe_tokens": ("pod", "data", "model"),  # flat (token, k) dispatch dim
+    "embed_fsdp": ("data",),
+    "kv_seq": ("data",),
+    "nodes": ("data", "model"),
+    "edges": ("pod", "data", "model"),
+}
+
+
+@contextlib.contextmanager
+def logical_axis_rules(mesh, rules: dict[str, tuple[str, ...]] | None = None):
+    """Map logical axes to ``mesh``'s axes (:data:`DEFAULT_RULES`, updated
+    by ``rules``) for the duration of the block."""
+    prev = getattr(_STATE, "ctx", None)
+    _STATE.ctx = (mesh, {**DEFAULT_RULES, **(rules or {})})
+    try:
+        yield
+    finally:
+        _STATE.ctx = prev
+
+
+def _axes_for(mesh, rules, name: str, dim: int) -> tuple[str, ...]:
+    """The rule's mesh axes for logical axis ``name`` that the mesh has,
+    shortened from the front until their product divides ``dim``."""
+    shape = sh.mesh_shape(mesh)
+    axes = tuple(a for a in rules.get(name, ()) if a in shape)
+    while axes:
+        size = sh.axis_size(mesh, axes)
+        if size and dim % size == 0:
+            return axes
+        axes = axes[1:]
+    return ()
+
+
 def group_count(name: str, dim: int) -> int:
     """Number of shard groups the logical axis ``name`` would split ``dim``
     into under the active rules (1 outside a rule context).  Used by the MoE
-    layer to block its dispatch into shard-local groups.
+    layer to block its dispatch into shard-local groups."""
+    ctx = getattr(_STATE, "ctx", None)
+    if ctx is None:
+        return 1
+    mesh, rules = ctx
+    axes = _axes_for(mesh, rules, name, dim)
+    return sh.axis_size(mesh, axes) if axes else 1
 
-    The port has no logical-axis rule context yet (the JAX package's
-    ``logical_axis_rules``), so every call is outside one and returns 1.
+
+def logical_spec(shape, *logical: str | None) -> sh.P | None:
+    """The mesh spec the active rules give a ``shape`` tensor annotated
+    with ``logical`` (one logical axis name or None per dim); None outside
+    a rule context.  Mesh axes that are absent or do not divide the dim are
+    dropped."""
+    ctx = getattr(_STATE, "ctx", None)
+    if ctx is None:
+        return None
+    mesh, rules = ctx
+    spec = []
+    for dim, name in zip(shape, logical):
+        axes = _axes_for(mesh, rules, name, dim) if name is not None else ()
+        spec.append(axes if axes else None)
+    return sh.P(*spec)
+
+
+class _GradLike(torch.autograd.Function):
+    """Identity whose backward hands on the gradient in the forward
+    input's placements."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.placements = x.placements
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if isinstance(grad, DTensor) and tuple(grad.placements) != tuple(ctx.placements):
+            grad = grad.redistribute(grad.device_mesh, ctx.placements)
+        return grad
+
+
+def constrain(x: torch.Tensor, *logical: str | None) -> torch.Tensor:
+    """Redistribute a DTensor to the placements the active rules give its
+    logical axes (one logical axis name or None per dim), and its gradient
+    likewise in the backward.  The identity outside a rule context and on a
+    plain tensor."""
+    spec = logical_spec(tuple(x.shape), *logical)
+    if spec is None or not isinstance(x, DTensor):
+        return x
+    placements = sh.to_placements(spec, x.device_mesh)
+    if tuple(x.placements) != placements:
+        x = x.redistribute(x.device_mesh, placements)
+    return _GradLike.apply(x) if x.requires_grad else x
+
+
+def as_dtensor(x: torch.Tensor, mesh) -> DTensor:
+    if isinstance(x, DTensor):
+        return x
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def local_map(fn, out_placements, in_placements, mesh):
+    """``fn`` over the local shards of DTensor arguments, each first
+    redistributed to its ``in_placements`` (a DTensor collective where they
+    differ); ``out_placements`` is a list of placements for one output, a
+    tuple of such lists for several."""
+    from torch.distributed.tensor.experimental import local_map as _local_map
+
+    return _local_map(fn, out_placements=out_placements, in_placements=in_placements,
+                      device_mesh=mesh, redistribute_inputs=True)
+
+
+def shard_index(mesh, axes) -> tuple[int, int]:
+    """(this device's index, the count) among the shards that the mesh
+    axes ``axes`` (a name, a tuple of names major to minor, or None) split
+    a dimension into."""
+    if axes is None:
+        return 0, 1
+    names = list(mesh.mesh_dim_names)
+    rank, n = 0, 1
+    for a in (axes,) if isinstance(axes, str) else axes:
+        k = names.index(a)
+        rank, n = rank * mesh.size(k) + mesh.get_local_rank(k), n * mesh.size(k)
+    return rank, n
+
+
+def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``, rows of ``table`` gathered by the integer ``ids``.
+
+    On a DTensor table it runs shard-local, never gathering the table
+    whole: the mesh dimensions that split the table's columns are gathered
+    first (FSDP's unshard of a ``[vocab, d]`` embedding); on those that
+    split its rows, ``ids`` are replicated (an all-gather of the ids), each
+    shard looks up the rows it owns and zeroes the rest, and the partial
+    results are summed back onto the ids' own placements (a reduce-scatter
+    where the ids were sharded, an all-reduce where they were replicated).
+    The backward of the masked lookup stays on the shard that owns the row.
     """
-    del name, dim
-    return 1
+    if not isinstance(table, DTensor) and not isinstance(ids, DTensor):
+        return table[ids]
+    mesh = table.device_mesh if isinstance(table, DTensor) else ids.device_mesh
+    table, ids = as_dtensor(table, mesh), as_dtensor(ids, mesh)
+    tpl = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                for p in table.placements)
+    rows = [k for k, p in enumerate(tpl) if isinstance(p, Shard)]
+    ipl = tuple(Replicate() if k in rows else p for k, p in enumerate(ids.placements))
+    if any(isinstance(p, Partial) for p in ipl):
+        raise ValueError(f"lookup ids must not be partial: {ids.placements}")
+    opl = tuple(Partial() if k in rows else p for k, p in enumerate(ipl))
+    rank, n = shard_index(mesh, tuple(mesh.mesh_dim_names[k] for k in rows))
+    if table.shape[0] % n:
+        raise ValueError(f"{n} row shards do not divide {table.shape[0]} rows")
+    n_local = table.shape[0] // n
+    lo = rank * n_local
+
+    def local(t, i):
+        j = i - lo
+        ok = (j >= 0) & (j < n_local)
+        got = t[torch.where(ok, j, torch.zeros_like(j))]
+        return torch.where(ok[..., None], got, torch.zeros_like(got))
+
+    out = local_map(local, list(opl), (tpl, ipl), mesh)(table, ids)
+    return out.redistribute(mesh, ids.placements)
+
+
+_IDENTITY = {"sum": 0.0, "amax": float("-inf"), "amin": float("inf")}
+_PARTIAL = {"sum": "sum", "amax": "max", "amin": "min"}
+
+
+def segment_reduce(vals: torch.Tensor, idx: torch.Tensor, n: int, reduce: str):
+    """The ``reduce`` ("sum", "amax" or "amin") of the rows of ``vals [E,
+    ...]`` into ``n`` segments by ``idx [E]``, on DTensors whose edge dim
+    is sharded: each shard reduces its own edges into all ``n`` rows (the
+    reduction's identity where it has none), and the result is that
+    partial reduction (a ``Partial`` DTensor; reading it reduces across
+    the shards).  An empty segment is the identity (±inf for a float max
+    and min, the dtype's extreme for an integer one).  The gradient is
+    exact for the sum; for max and min every shard routes it to its own
+    extreme, so it is exact only where one shard holds a segment's
+    extreme."""
+    mesh = vals.device_mesh if isinstance(vals, DTensor) else idx.device_mesh
+    vals, idx = as_dtensor(vals, mesh), as_dtensor(idx, mesh)
+    ipl = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                for p in idx.placements)
+    opl = tuple(Partial(_PARTIAL[reduce]) if isinstance(p, Shard) else p for p in ipl)
+
+    def local(v, i):
+        ident = _IDENTITY[reduce]
+        if not v.dtype.is_floating_point and reduce != "sum":
+            ident = (torch.iinfo(v.dtype).min if reduce == "amax"
+                     else torch.iinfo(v.dtype).max)
+        out = torch.full((n, *v.shape[1:]), ident, dtype=v.dtype, device=v.device)
+        i = i.to(torch.int64)
+        if reduce == "sum":
+            return out.index_add(0, i, v)
+        ix = i.reshape(-1, *([1] * (v.dim() - 1))).expand_as(v)
+        return out.scatter_reduce(0, ix, v, reduce, include_self=True)
+
+    return local_map(local, list(opl), (ipl, ipl), mesh)(vals, idx)
+

@@ -22,8 +22,11 @@ is arithmetic, so every extracted bit is masked with ``& 1``.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core import bitops
+from repro_torch.distributed import shard as sh
+from repro_torch.distributed.ctx import logical_spec, segment_reduce
 
 
 def edge_bits(frontier_p: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
@@ -45,11 +48,21 @@ def segor_words(
     nw = bitops.packed_width(num_segments)
     n_pad = nw * bitops.WORD  # rows past num_segments stay zero: pad bits
     rows = seg_ids.to(torch.int64)
-    rows = torch.where(rows < num_segments, rows, n_pad)  # dropped row
-    y = torch.zeros((n_pad + 1, v), dtype=torch.int32, device=bits.device)
-    y.scatter_reduce_(
-        0, rows[:, None].expand(-1, v), bits.T.to(torch.int32), reduce="amax"
-    )
+    if isinstance(bits, DTensor) or isinstance(seg_ids, DTensor):
+        # edge-sharded: each shard's partial max (a dropped edge's bits are
+        # zeroed onto row 0, which cannot change an OR), node-sharded
+        keep = rows < num_segments
+        vals = bits.T.to(torch.int32) * keep[:, None].to(torch.int32)
+        y = segment_reduce(vals, torch.where(keep, rows, 0), n_pad, "amax")
+        words = (logical_spec((nw,), "nodes") or sh.P(None))[0]  # whole words a shard
+        y = y.redistribute(y.device_mesh, sh.to_placements(sh.P(words, None), y.device_mesh))
+        y = torch.clamp(y, min=0)
+    else:
+        rows = torch.where(rows < num_segments, rows, n_pad)  # dropped row
+        y = torch.zeros((n_pad + 1, v), dtype=torch.int32, device=bits.device)
+        y.scatter_reduce_(
+            0, rows[:, None].expand(-1, v), bits.T.to(torch.int32), reduce="amax"
+        )
     # shift each 32-row group into its lanes and fold: lanes 0..30 are
     # disjoint bits below 2**31, so their int32 sum is their OR; lane 31
     # (the sign bit) is ORed in on its own

@@ -22,6 +22,13 @@ JAX package's tree paths (``layers.0.A.w`` is ``tree["layers"][0]["A"]["w"]``).
 Mixed dtypes promote as in JAX: a bf16 activation times an f32 weight is
 an f32 product, so only GatedGCN, which casts its weights, runs its layers
 in the activation dtype.
+
+The reference's ``constrain`` sites mark node and edge tensors; outside a
+rule context they do nothing.  On DTensors (the dry-run) a gather by
+edge endpoints reads a replicated node tensor (:func:`_at`) and a segment
+reduction is each edge shard's partial result
+(:func:`repro_torch.distributed.ctx.segment_reduce`), which the next
+``constrain`` reduces onto the node shards.
 """
 from __future__ import annotations
 
@@ -32,9 +39,11 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.distributed.ctx import constrain, segment_reduce
 from repro_torch.models.transformer import cast_params
 
 
@@ -72,15 +81,35 @@ def _index_like(idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     return idx.to(torch.int64).reshape(-1, *([1] * (vals.dim() - 1))).expand_as(vals)
 
 
+def _sharded(*ts) -> bool:
+    return any(isinstance(t, DTensor) for t in ts)
+
+
+def _at(x, idx):
+    """``x[idx]``: node rows gathered by edge endpoints.  On DTensors the
+    node tensor is replicated first (an all-gather of the node features,
+    the reference's layout for segment ops), so the gather is local to each
+    edge shard and its backward a partial sum."""
+    if _sharded(x, idx):
+        x = constrain(x, *([None] * x.dim()))
+    return x[idx]
+
+
 def seg_sum(vals, idx, n):
+    if _sharded(vals, idx):  # each edge shard's partial sum
+        return segment_reduce(vals, idx, n, "sum")
     return vals.new_zeros((n, *vals.shape[1:])).index_add_(0, idx, vals)
 
 
 def _seg_extreme(vals, idx, n, reduce: str):
     """Segment max or min; a segment with no element gives 0 (as the JAX
     package's ``where(isfinite(out), out, 0)`` turns its ±inf into 0)."""
-    out = vals.new_zeros((n, *vals.shape[1:])).scatter_reduce(
-        0, _index_like(idx, vals), vals, reduce, include_self=False)
+    if _sharded(vals, idx):  # each edge shard's partial max / min
+        out = constrain(segment_reduce(vals, idx, n, reduce), "nodes",
+                        *([None] * (vals.dim() - 1)))
+    else:
+        out = vals.new_zeros((n, *vals.shape[1:])).scatter_reduce(
+            0, _index_like(idx, vals), vals, reduce, include_self=False)
     return torch.where(torch.isfinite(out), out, torch.zeros_like(out))
 
 
@@ -103,9 +132,9 @@ def seg_mean(vals, idx, n, deg=None):
 def seg_softmax(logits, idx, n):
     """Softmax over segments (edge -> destination-node groups)."""
     m = seg_max(logits, idx, n)
-    e = torch.exp(logits - m[idx])
-    z = seg_sum(e, idx, n)
-    return e / torch.clamp(z[idx], min=1e-30)
+    e = torch.exp(logits - _at(m, idx))
+    z = constrain(seg_sum(e, idx, n), "nodes", None)
+    return e / torch.clamp(_at(z, idx), min=1e-30)
 
 
 # the most elements of one chunk of an [E, H, D] edge tensor that GAT's
@@ -300,18 +329,18 @@ def _fwd_gatedgcn(cfg: GNNConfig, p, batch):
     src, dst = _edges(batch)
     emask = batch["edge_mask"][:, None].to(cfg.dtype)
     p = cast_params(cfg, p)
-    h = _apply(p.embed, batch["feat"].to(cfg.dtype))
-    e = p.edge_embed.expand(src.shape[0], cfg.d_hidden)
+    h = constrain(_apply(p.embed, batch["feat"].to(cfg.dtype)), "nodes", None)
+    e = constrain(p.edge_embed.expand(src.shape[0], cfg.d_hidden), "edges", None)
 
     def layer(lp, h, e):
-        dh = _apply(lp.D, h)[src]
-        eh = _apply(lp.E, h)[dst]
-        e_new = e + F.relu(_ln(_apply(lp.C, e) + dh + eh))
-        eta = torch.sigmoid(e_new) * emask
-        denom = seg_sum(eta, dst, n) + 1e-6
-        bh = _apply(lp.B, h)[src]
-        msg = seg_sum(eta * bh, dst, n) / denom
-        h = h + F.relu(_ln(_apply(lp.A, h) + msg))
+        dh = constrain(_at(_apply(lp.D, h), src), "edges", None)
+        eh = constrain(_at(_apply(lp.E, h), dst), "edges", None)
+        e_new = constrain(e + F.relu(_ln(_apply(lp.C, e) + dh + eh)), "edges", None)
+        eta = constrain(torch.sigmoid(e_new) * emask, "edges", None)
+        denom = constrain(seg_sum(eta, dst, n) + 1e-6, "nodes", None)
+        bh = constrain(_at(_apply(lp.B, h), src), "edges", None)
+        msg = constrain(seg_sum(eta * bh, dst, n), "nodes", None) / denom
+        h = constrain(h + F.relu(_ln(_apply(lp.A, h) + msg)), "nodes", None)
         return h, e_new
 
     step = _layer(cfg, layer)
@@ -324,20 +353,35 @@ def _fwd_gat(cfg: GNNConfig, p, batch):
     n = batch["feat"].shape[0]
     src, dst = _edges(batch)
     emask = batch["edge_mask"].to(cfg.dtype)
-    h = batch["feat"].to(cfg.dtype)
+    h = constrain(batch["feat"].to(cfg.dtype), "nodes", None)
 
     def layer(lp, h, last):
-        hw = _einsum("nf,fhd->nhd", h, lp.W)  # [N, H, D]
+        if _sharded(h):  # one node-sharded [N, f] x [f, H*D] product
+            x, w = _promoted(h, lp.W)
+            hw = constrain(x @ w.reshape(w.shape[0], -1), "nodes", None).reshape(
+                n, *w.shape[1:])
+        else:
+            hw = _einsum("nf,fhd->nhd", h, lp.W)  # [N, H, D]
         al = _einsum("nhd,hd->nh", hw, lp.a_src)
         ar = _einsum("nhd,hd->nh", hw, lp.a_dst)
-        logits = F.leaky_relu(al[src] + ar[dst], 0.2)  # [E, H]
-        logits = torch.where(emask[:, None] > 0, logits,
-                             torch.full((), -1e30, dtype=logits.dtype, device=h.device))
-        alpha = seg_softmax(logits, dst, n) * emask[:, None]  # [E, H]
-        out = _WeightedGatherScatter.apply(*_promoted(alpha, hw), src, dst, n)  # [N, H, D]
+        logits = F.leaky_relu(
+            constrain(_at(al, src), "edges", None) + constrain(_at(ar, dst), "edges", None), 0.2
+        )  # [E, H]
+        logits = constrain(
+            torch.where(emask[:, None] > 0, logits,
+                        torch.full((), -1e30, dtype=logits.dtype, device=h.device)),
+            "edges", None)
+        alpha = constrain(seg_softmax(logits, dst, n) * emask[:, None], "edges", None)
+        if _sharded(alpha, hw):  # the plain formula, edge-sharded
+            alpha, hw = _promoted(alpha, hw)
+            hws = constrain(_at(hw, src), "edges", None, None)
+            out = seg_sum(alpha[:, :, None] * hws, dst, n)
+        else:
+            out = _WeightedGatherScatter.apply(*_promoted(alpha, hw), src, dst, n)
+        out = constrain(out, "nodes", None, None)  # [N, H, D]
         if last:
-            return torch.mean(out, dim=1)
-        return F.elu(out).reshape(n, -1)
+            return constrain(torch.mean(out, dim=1), "nodes", None)
+        return constrain(F.elu(out).reshape(n, -1), "nodes", None)
 
     for i, lp in enumerate(p.layers):
         last = i == len(p.layers) - 1
@@ -349,22 +393,26 @@ def _fwd_pna(cfg: GNNConfig, p, batch, delta: float = 2.5):
     n = batch["feat"].shape[0]
     src, dst = _edges(batch)
     emask = batch["edge_mask"][:, None].to(cfg.dtype)
-    h = _apply(p.embed, batch["feat"].to(cfg.dtype))
+    h = constrain(_apply(p.embed, batch["feat"].to(cfg.dtype)), "nodes", None)
     deg = seg_sum(emask, dst, n)  # [N, 1]
     logd = torch.log(deg + 1.0)
 
     def layer(lp, h):
-        msg = F.relu(_apply(lp.pre, torch.cat([h[src], h[dst]], dim=-1))) * emask
-        mean = seg_mean(msg, dst, n, deg)
-        mx = seg_max(msg, dst, n)
-        mn = seg_min(msg, dst, n)
-        var = seg_mean(msg * msg, dst, n, deg) - mean * mean
+        hs = constrain(_at(h, src), "edges", None)
+        hd = constrain(_at(h, dst), "edges", None)
+        msg = constrain(F.relu(_apply(lp.pre, torch.cat([hs, hd], dim=-1))) * emask,
+                        "edges", None)  # [E, d]
+        mean = constrain(seg_mean(msg, dst, n, deg), "nodes", None)
+        mx = constrain(seg_max(msg, dst, n), "nodes", None)
+        mn = constrain(seg_min(msg, dst, n), "nodes", None)
+        var = constrain(seg_mean(msg * msg, dst, n, deg), "nodes", None) - mean * mean
         std = torch.sqrt(torch.clamp(var, min=1e-6))
         aggs = torch.cat([mean, mx, mn, std], dim=-1)  # [N, 4d]
         amp = logd / delta
         att = delta / torch.clamp(logd, min=1e-2)
-        scaled = torch.cat([aggs, aggs * amp, aggs * att, h], dim=-1)
-        return h + F.relu(_apply(lp.post, scaled))
+        scaled = constrain(torch.cat([aggs, aggs * amp, aggs * att, h], dim=-1),
+                           "nodes", None)
+        return constrain(h + F.relu(_apply(lp.post, scaled)), "nodes", None)
 
     step = _layer(cfg, layer)
     for lp in p.layers:
@@ -387,19 +435,22 @@ def _fwd_schnet(cfg: GNNConfig, p, batch):
     h = p.embed[torch.clamp(z, 0, 99).to(torch.int64)]  # [N, d]
     pos = batch["positions"].to(cfg.dtype)
     dist = torch.sqrt(
-        torch.sum((pos[src] - pos[dst]) ** 2, dim=-1, keepdim=True) + 1e-12
+        torch.sum((_at(pos, src) - _at(pos, dst)) ** 2, dim=-1, keepdim=True) + 1e-12
     )  # [E, 1]
     centers = _linspace(cfg.cutoff, cfg.n_rbf, cfg.dtype, dist.device)
     gamma = 10.0
-    rbf = torch.exp(-gamma * (dist - centers[None, :]) ** 2)  # [E, n_rbf]
+    rbf = constrain(torch.exp(-gamma * (dist - centers[None, :]) ** 2),
+                    "edges", None)  # [E, n_rbf]
     cos_cut = 0.5 * (torch.cos(math.pi * torch.clamp(dist, max=cfg.cutoff) / cfg.cutoff)
                      + 1.0)
 
     def layer(lp, h):
-        w = _ssp(_apply(lp.filt2, _ssp(_apply(lp.filt1, rbf)))) * cos_cut
-        msg = _apply(lp.lin1, h)[src] * w * emask
-        agg = seg_sum(msg, dst, n)
-        return h + _apply(lp.lin2, _ssp(agg))
+        w = constrain(_ssp(_apply(lp.filt2, _ssp(_apply(lp.filt1, rbf)))) * cos_cut,
+                      "edges", None)
+        hs = constrain(_at(_apply(lp.lin1, h), src), "edges", None)
+        msg = constrain(hs * w * emask, "edges", None)
+        agg = constrain(seg_sum(msg, dst, n), "nodes", None)
+        return constrain(h + _apply(lp.lin2, _ssp(agg)), "nodes", None)
 
     step = _layer(cfg, layer)
     for lp in p.layers:

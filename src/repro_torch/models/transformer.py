@@ -15,6 +15,14 @@ floor on the running max, the probabilities cast back to the activation
 dtype before the PV product.  The MoE block is plain torch too, as the
 JAX package's is plain ``jnp``: a stable sort, ``index_put`` and batched
 expert products.
+
+The reference's ``constrain`` sites annotate activations with logical
+axes; outside a rule context they do nothing.  Under one, on DTensors
+(the dry-run), three pieces run shard-local through ``local_map``, where
+DTensor's own rules would gather or fail: attention over batch and head
+shards (:func:`_attend`), the MoE block over the experts' split
+(:func:`_moe_sharded`), and the cross entropy's target logit, a one-hot
+contraction over the vocab-sharded logits.
 """
 from __future__ import annotations
 
@@ -25,11 +33,14 @@ import types
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
-from repro_torch.distributed.ctx import group_count
+from repro_torch.distributed import ctx
+from repro_torch.distributed import shard as sh
+from repro_torch.distributed.ctx import constrain, group_count, lookup
 
 MASK_VALUE = -1e30  # additive bias of a masked (query, key) pair
 MAX_FLOOR = -1e9  # floor of the running max: a fully masked row gets p = 0
@@ -326,6 +337,38 @@ def gqa_attention(
     return o[:, :sq]
 
 
+def _attend(q, k, v, q_pos, k_pos, window):
+    """:func:`gqa_attention`; on DTensors, shard-local: the batch over the
+    ``batch`` rule's axes and the query heads over the ``heads`` rule's,
+    each shard attending with the key/value heads its query heads read
+    (kept sharded with them where a shard's query heads cover whole groups,
+    else replicated and sliced), through ``local_map``."""
+    if not isinstance(q, DTensor):
+        return gqa_attention(q, k, v, q_pos, k_pos, window=window)
+    mesh = q.device_mesh
+    h, kvh = q.shape[2], k.shape[2]
+    g = h // kvh
+    bat, _, heads, _ = (ctx.logical_spec(tuple(q.shape), "batch", None, "heads", None)
+                        or (None,) * 4)
+    hl = h // sh.axis_size(mesh, heads)  # query heads a shard holds
+    if hl % g and g % hl:  # a shard's heads straddle two kv groups: batch only
+        heads, hl = None, h
+    kv_sharded = heads is not None and hl % g == 0
+    qpl = sh.to_placements(sh.P(bat, None, heads, None), mesh)
+    kpl = sh.to_placements(sh.P(bat, None, heads if kv_sharded else None, None), mesh)
+    ppl = sh.to_placements(sh.P(bat, None), mesh)
+
+    def local(ql, kl, vl, qp, kp):
+        if heads is not None and not kv_sharded:  # this shard's heads share a kv head
+            j = ctx.shard_index(mesh, heads)[0] * hl // g
+            kl, vl = kl[:, :, j:j + 1], vl[:, :, j:j + 1]
+        return gqa_attention(ql, kl, vl, qp, kp, window=window)
+
+    q_pos, k_pos = ctx.as_dtensor(q_pos, mesh), ctx.as_dtensor(k_pos, mesh)
+    return ctx.local_map(local, list(qpl), (qpl, kpl, kpl, ppl, ppl), mesh)(
+        q, k, v, q_pos, k_pos)
+
+
 def attention(
     cfg: LMConfig,
     p,
@@ -337,9 +380,15 @@ def attention(
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     b, sq, d = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p.wq.to(cfg.dtype)).reshape(b, sq, h, hd)
-    k = (x @ p.wk.to(cfg.dtype)).reshape(b, sq, kv, hd)
-    v = (x @ p.wv.to(cfg.dtype)).reshape(b, sq, kv, hd)
+    # the flat projections take their heads' layout before the reshape
+    # splits their last dim into heads (a split a shard boundary cannot cut)
+    head_axis = "heads" if group_count("heads", h) > 1 else None
+    q = constrain(x @ p.wq.to(cfg.dtype), "batch", None, head_axis).reshape(b, sq, h, hd)
+    q = constrain(q, "batch", None, "heads", None)
+    k = constrain(x @ p.wk.to(cfg.dtype), "batch", None, None).reshape(b, sq, kv, hd)
+    v = constrain(x @ p.wv.to(cfg.dtype), "batch", None, None).reshape(b, sq, kv, hd)
+    k = constrain(k, "batch", None, None, None)
+    v = constrain(v, "batch", None, None, None)
     if cfg.qk_norm:
         q = rmsnorm(q, p.q_norm, cfg.norm_eps)
         k = rmsnorm(k, p.k_norm, cfg.norm_eps)
@@ -353,16 +402,14 @@ def attention(
     else:
         k_full, v_full, kp = k, v, positions
 
-    o = gqa_attention(
-        q, k_full, v_full, positions, kp, window=cfg.sliding_window
-    ).reshape(b, sq, h * hd)
+    o = _attend(q, k_full, v_full, positions, kp, cfg.sliding_window).reshape(b, sq, h * hd)
     return o @ p.wo.to(cfg.dtype), (k_full, v_full)
 
 
 def swiglu(p, x: torch.Tensor, dtype) -> torch.Tensor:
     g = F.silu(x @ p.w_gate.to(dtype))
     u = x @ p.w_up.to(dtype)
-    return (g * u) @ p.w_down.to(dtype)
+    return constrain(g * u, "batch", None, "ff") @ p.w_down.to(dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -434,7 +481,9 @@ def moe_block(cfg: LMConfig, p, x: torch.Tensor, groups: int | None = None):
     e = m.n_experts
     g_ = groups if groups is not None else group_count("batch", t)
     tl = t // g_  # tokens per group
-    xg = x.reshape(g_, tl, d)
+    xg = constrain(x.reshape(g_, tl, d), "batch", None, None)
+    if isinstance(xg, DTensor):
+        return _moe_sharded(cfg, p, xg, (b, s, d))
     probs, disp = route(cfg, p.router, xg)
 
     with record_function("moe_dispatch"):
@@ -443,21 +492,86 @@ def moe_block(cfg: LMConfig, p, x: torch.Tensor, groups: int | None = None):
         ek, pk, tk = disp.expert[keep], disp.pos[keep], disp.token[keep]
         buf = torch.zeros((g_, e, disp.cap, d), dtype=cfg.dtype, device=x.device)
         buf = buf.index_put((gi, ek, pk), xg[gi, tk].to(cfg.dtype), accumulate=True)
+        buf = constrain(buf, "batch", "expert", None, None)  # [G, E, C, d]
 
     with record_function("moe_experts"):
         gact = F.silu(torch.einsum("gecd,edf->gecf", buf, p.w_gate.to(cfg.dtype)))
         u = torch.einsum("gecd,edf->gecf", buf, p.w_up.to(cfg.dtype))
-        ye = torch.einsum("gecf,efd->gecd", gact * u, p.w_down.to(cfg.dtype))
+        ye = constrain(torch.einsum("gecf,efd->gecd", gact * u, p.w_down.to(cfg.dtype)),
+                       "batch", "expert", None, None)
 
     with record_function("moe_combine"):
         vals = ye[gi, ek, pk] * disp.weight[keep][:, None]  # dropped slots add 0
         yt = ye.new_zeros((g_, tl, d)).index_put((gi, tk), vals, accumulate=True)
+        yt = constrain(yt, "batch", None, None)
 
     # load-balance aux loss (Switch): E * sum_e f_e * P_e
     frac = torch.sum(disp.counts, dim=0).to(torch.float32) / (g_ * tl * m.top_k)
     pmean = torch.mean(probs, dim=(0, 1))
     aux = e * torch.sum(frac * pmean)
     return yt.reshape(b, s, d), aux
+
+
+def _moe_sharded(cfg: LMConfig, p, xg: DTensor, shape: tuple[int, int, int]):
+    """:func:`moe_block` on a DTensor ``xg [G, tl, d]``, its groups over the
+    ``batch`` rule's axes, through ``local_map``.  The experts are split
+    over the ``expert`` rule's axes where they divide the expert count
+    (expert parallelism), else each expert's ``d_expert`` over the ``ff``
+    rule's (tensor parallelism); the router and the weights' ``d_model``
+    are gathered.  Every shard routes its groups' tokens (replicated across
+    the split), dispatches the slots of its own experts into a
+    fixed-shape buffer (a dropped slot lands in one spare row that is cut
+    off), and combines its experts' share of each token: the output is a
+    partial sum across the split, and the aux loss's routed fractions and
+    mean probabilities are averages across the groups' shards."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    m = cfg.moe
+    e, fe = m.n_experts, m.d_expert
+    g_, tl, d = xg.shape
+    mesh = xg.device_mesh
+    bat = (ctx.logical_spec((g_,), "batch") or sh.P(None))[0]
+    ep = (ctx.logical_spec((e,), "expert") or sh.P(None))[0]
+    split = ep if ep is not None else (ctx.logical_spec((fe,), "ff") or sh.P(None))[0]
+    e_l = e // sh.axis_size(mesh, ep)
+    if ep is not None:
+        wg_pl = wd_pl = sh.to_placements(sh.P(ep, None, None), mesh)
+    else:
+        wg_pl = sh.to_placements(sh.P(None, None, split), mesh)
+        wd_pl = sh.to_placements(sh.P(None, split, None), mesh)
+    xpl = sh.to_placements(sh.P(bat, None, None), mesh)
+    rpl = sh.to_placements(sh.P(), mesh)
+    split_dims = {i for i, pl in enumerate(sh.to_placements(sh.P(split), mesh))
+                  if pl != Replicate()}
+    ypl = [Partial() if k in split_dims else pl for k, pl in enumerate(xpl)]
+    apl = [Partial("avg") if pl != Replicate() else Replicate() for pl in xpl]
+
+    def local(xl, router, wg, wu, wd):
+        gl = xl.shape[0]
+        probs, disp = route(cfg, router, xl)
+        le = disp.expert - ctx.shard_index(mesh, ep)[0] * e_l
+        keep = disp.kept & (le >= 0) & (le < e_l)
+        gi = torch.arange(gl, device=xl.device)[:, None].expand_as(le)
+        ek = torch.where(keep, le, torch.zeros_like(le))
+        pk = torch.where(keep, disp.pos, torch.full_like(disp.pos, disp.cap))
+        vals = xl[gi, disp.token].to(cfg.dtype) * keep[..., None].to(cfg.dtype)
+        buf = xl.new_zeros((gl, e_l, disp.cap + 1, d), dtype=cfg.dtype)
+        buf = buf.index_put((gi, ek, pk), vals, accumulate=True)[:, :, :disp.cap]
+        gact = F.silu(torch.einsum("gecd,edf->gecf", buf, wg.to(cfg.dtype)))
+        u = torch.einsum("gecd,edf->gecf", buf, wu.to(cfg.dtype))
+        ye = F.pad(torch.einsum("gecf,efd->gecd", gact * u, wd.to(cfg.dtype)),
+                   (0, 0, 0, 1))  # the spare row reads 0
+        w = (disp.weight * keep.to(disp.weight.dtype))[..., None]
+        yt = ye.new_zeros((gl, tl, d)).index_put((gi, disp.token), ye[gi, ek, pk] * w,
+                                                 accumulate=True)
+        frac = torch.sum(disp.counts, dim=0).to(torch.float32) / (gl * tl * m.top_k)
+        return yt, frac, torch.mean(probs, dim=(0, 1))
+
+    yt, frac, pmean = ctx.local_map(
+        local, (ypl, apl, apl), (xpl, rpl, wg_pl, wg_pl, wd_pl), mesh,
+    )(xg, p.router, p.w_gate, p.w_up, p.w_down)
+    yt = constrain(yt, "batch", None, None)
+    return yt.reshape(shape), e * torch.sum(frac * pmean)
 
 
 # --------------------------------------------------------------------- #
@@ -473,9 +587,9 @@ def _ffn(cfg: LMConfig, lp, hin) -> tuple[torch.Tensor, torch.Tensor]:
 
 def _layer_fwd(cfg: LMConfig, lp, x, positions):
     a, _ = attention(cfg, lp.attn, rmsnorm(x, lp.ln1, cfg.norm_eps), positions)
-    x = x + a
+    x = constrain(x + a, "batch", None, None)
     y, aux = _ffn(cfg, lp, rmsnorm(x, lp.ln2, cfg.norm_eps))
-    return x + y, aux
+    return constrain(x + y, "batch", None, None), aux
 
 
 def _positions(tokens: torch.Tensor) -> torch.Tensor:
@@ -492,7 +606,7 @@ def forward(cfg: LMConfig, params, tokens: torch.Tensor) -> tuple[torch.Tensor, 
     dense model).
     """
     positions = _positions(tokens)
-    x = params.embed.to(cfg.dtype)[tokens]
+    x = constrain(lookup(params.embed.to(cfg.dtype), tokens), "batch", None, None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in params.layers:
         if cfg.remat:
@@ -508,17 +622,29 @@ def logits_of(cfg: LMConfig, params, hidden: torch.Tensor) -> torch.Tensor:
     return hidden @ params.unembed.to(cfg.dtype)
 
 
+def _onehot(idx: torch.Tensor, vocab: int) -> torch.Tensor:
+    """f32 ``[B, c, V]`` one-hot of ``idx [B, c, 1]``, vocab-sharded under
+    the rules (the target-logit contraction of a vocab-sharded DTensor)."""
+    hot = (torch.arange(vocab, device=idx.device) == idx).to(torch.float32)
+    return constrain(hot, "batch", None, "vocab")
+
+
 class _ChunkCE(torch.autograd.Function):
     """Summed masked cross entropy of one sequence chunk: ``sum((lse - tgt)
     * mask)`` with f32 logits ``hc @ w``.  One ``[B, c, V]`` f32 slab is
     live at a time, in the forward and in the backward, which recomputes
-    the logits instead of saving them."""
+    the logits instead of saving them.  On DTensors, where the logits are
+    vocab-sharded, the target logit is a one-hot contraction (a gather
+    across the sharded vocab would need the whole row)."""
 
     @staticmethod
     def forward(ctx, hc, w, lc):
-        logits = (hc @ w).to(torch.float32)  # [B, c, V]
+        logits = constrain((hc @ w).to(torch.float32), "batch", None, "vocab")  # [B, c, V]
         idx = torch.clamp(lc, min=0).to(torch.int64)[..., None]
-        tgt = torch.gather(logits, -1, idx)[..., 0]
+        if isinstance(logits, DTensor):
+            tgt = torch.sum(logits * _onehot(idx, logits.shape[-1]), dim=-1)
+        else:
+            tgt = torch.gather(logits, -1, idx)[..., 0]
         m = torch.amax(logits, dim=-1)
         lse = torch.log(torch.sum(logits.sub_(m[..., None]).exp_(), dim=-1)) + m
         mask = (lc >= 0).to(torch.float32)
@@ -528,9 +654,12 @@ class _ChunkCE(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         hc, w, idx, lse, mask = ctx.saved_tensors
-        d = (hc @ w).to(torch.float32)
+        d = constrain((hc @ w).to(torch.float32), "batch", None, "vocab")
         d.sub_(lse[..., None]).exp_()  # softmax
-        d.scatter_add_(-1, idx, torch.full_like(idx, -1, dtype=d.dtype))
+        if isinstance(d, DTensor):
+            d = d - _onehot(idx, d.shape[-1])
+        else:
+            d.scatter_add_(-1, idx, torch.full_like(idx, -1, dtype=d.dtype))
         d.mul_((grad * mask)[..., None])
         d = d.to(hc.dtype)
         grad_h = d @ w.transpose(0, 1) if ctx.needs_input_grad[0] else None
@@ -570,7 +699,7 @@ def prefill_step(cfg: LMConfig, params, tokens: torch.Tensor) -> tuple[torch.Ten
     """Serving prefill: build the KV cache, return last-position logits."""
     b, s = tokens.shape
     positions = _positions(tokens)
-    x = params.embed.to(cfg.dtype)[tokens]
+    x = lookup(params.embed.to(cfg.dtype), tokens)
     win = cfg.sliding_window
     ks, vs = [], []
     for lp in params.layers:
@@ -609,7 +738,7 @@ def decode_step(
 ) -> tuple[torch.Tensor, dict]:
     """One-token decode: tokens [B, 1]; rolling cache for SWA."""
     positions = cache["pos"][:, None]  # [B, 1]
-    x = params.embed.to(cfg.dtype)[tokens]
+    x = lookup(params.embed.to(cfg.dtype), tokens)
     s_cache = cache["k"].shape[2]
     k_pos = positions - s_cache + torch.arange(
         s_cache, dtype=torch.int32, device=tokens.device)[None, :]

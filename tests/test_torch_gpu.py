@@ -4,7 +4,8 @@ their plain PyTorch versions, the query path on the card (the edge
 engines, the partitioned engine and the dense tier) against the same path
 on the CPU, a two-replica ``AsyncServer`` on the card, the LM's train
 step, attention, decode and ``launch.train`` on the card against the CPU,
-and the MoE LMs' train step and dispatch and the GNNs' ``GNNArch.step`` on
+and the MoE LMs' train step and dispatch, the GNNs' ``GNNArch.step`` and the
+recsys model's step, EmbeddingBag, retrieval and sharded step on
 the card against the CPU.  A CUDA kernel has no CPU mode, so without a
 card these skip.  The file imports neither JAX nor the JAX package, so it
 runs where JAX is not installed:
@@ -713,3 +714,120 @@ def test_gnn_step_on_card_matches_cpu(cuda_device, no_tf32, arch_id, cell_name):
         torch.testing.assert_close(out[0][key].cpu(), out[1][key], rtol=1e-4, atol=0)
     _held_to_step(card, cpu, before, grads, float(out[1]["lr"]), arch.opt.weight_decay,
                   arch.opt.eps)
+
+
+def _rec_case(seed=0, b=64):
+    from repro_torch import configs
+    from repro_torch.data import pipeline
+
+    cfg = configs.get("dcn-v2").reduced()
+    batch = next(pipeline.recsys_batches(batch=b, n_dense=cfg.n_dense,
+                                         vocab_sizes=cfg.vocab_sizes, seed=seed,
+                                         shard=pipeline.ShardSpec(0, 1)))
+    return cfg, {k: torch.as_tensor(v) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_recsys_step_on_card_matches_cpu(cuda_device, no_tf32, microbatches):
+    """dcn-v2 ``reduced()``: forward, loss and one ``RecsysArch.step`` on
+    the card against the CPU from the same parameters and batch."""
+    import copy
+
+    from repro_torch.configs import base
+    from repro_torch.models import recsys
+    from repro_torch.optimizer import adamw
+
+    cfg, b = _rec_case()
+    arch = base.RecsysArch(cfg)
+    cell = dataclasses.replace(arch.cells()["train_batch"], batch=64,
+                               microbatches=microbatches)
+    cpu = recsys.init_params(cfg, 0, device="cpu")
+    card = copy.deepcopy(cpu).to(cuda_device)
+    bc = {k: v.to(cuda_device) for k, v in b.items()}
+    torch.testing.assert_close(recsys.forward(cfg, card, bc).detach().cpu(),
+                               recsys.forward(cfg, cpu, b).detach(), rtol=1e-4, atol=1e-6)
+    before = [p.detach().clone() for p in cpu.parameters()]
+    grads = torch.autograd.grad(recsys.loss_fn(cfg, cpu, b), list(cpu.parameters()))
+    out = []
+    for model, batch in ((card, bc), (cpu, b)):
+        state = {"params": model, "opt": adamw.init(list(model.parameters()))}
+        out.append(arch.step(cell)(state, batch)[1])
+    for key in ("loss", "grad_norm", "lr"):
+        torch.testing.assert_close(out[0][key].cpu(), out[1][key], rtol=1e-4, atol=0)
+    _held_to_step(card, cpu, before, grads, float(out[1]["lr"]), arch.opt.weight_decay,
+                  arch.opt.eps)
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_recsys_embedding_bag_and_retrieval_on_card_match_cpu(cuda_device, no_tf32, mode):
+    from repro_torch.models import recsys
+
+    cfg, b = _rec_case()
+    model = recsys.init_params(cfg, 0, device="cpu")
+    rng = np.random.default_rng(1)
+    vals = torch.as_tensor(rng.integers(0, cfg.total_vocab, 300), dtype=torch.int32)
+    segs = torch.as_tensor(np.sort(rng.integers(0, 40, 300)), dtype=torch.int32)
+    t = model.table.detach()
+    torch.testing.assert_close(
+        recsys.embedding_bag(t.to(cuda_device), vals.to(cuda_device), segs.to(cuda_device),
+                             50, mode=mode).cpu(),
+        recsys.embedding_bag(t, vals, segs, 50, mode=mode), rtol=1e-5, atol=1e-6)
+    cands = torch.as_tensor(rng.standard_normal((2000, cfg.mlp[-1]), dtype=np.float32))
+    q = {k: v[:2] for k, v in b.items() if k != "labels"}
+    with torch.no_grad():
+        s_cpu, _ = recsys.retrieval_score(cfg, model, {**q, "candidates": cands})
+        card = model.to(cuda_device)
+        s, top = recsys.retrieval_score(cfg, card, {**{k: v.to(cuda_device) for k, v in q.items()},
+                                                    "candidates": cands.to(cuda_device)})
+    torch.testing.assert_close(s.cpu(), s_cpu, rtol=1e-4, atol=1e-6)
+    want = torch.topk(s.cpu(), 100).values
+    torch.testing.assert_close(torch.sort(torch.gather(s.cpu(), 1, top.cpu())).values,
+                               torch.sort(want).values, rtol=0, atol=0)
+
+
+def test_recsys_sharded_step_on_host_mesh_is_bit_equal(cuda_device):
+    """The 1x1 mesh over the card: the state placed by ``state_shardings``
+    takes one step under the rules equal bit for bit to the plain step,
+    and holds the bytes the dry-run's accounting gives."""
+    import copy
+
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import base
+    from repro_torch.distributed import shard as sh
+    from repro_torch.distributed.ctx import logical_axis_rules
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import recsys
+    from repro_torch.optimizer import adamw
+
+    cfg, b = _rec_case()
+    arch = base.RecsysArch(cfg)
+    cell = dataclasses.replace(arch.cells()["train_batch"], batch=64, microbatches=2)
+    plain = recsys.init_params(cfg, 0, device=cuda_device)
+    state = {"params": plain, "opt": adamw.init(list(plain.parameters()))}
+    batch = {k: v.to(cuda_device) for k, v in b.items()}
+    try:
+        mesh = mesh_mod.make_host_mesh()
+        shs = arch.state_shardings(mesh, cell)
+
+        def place(t, ns):
+            return distribute_tensor(t.detach().clone(), mesh, ns.placements)
+
+        model = copy.deepcopy(plain)
+        placed = sh.place({"params": model, "opt": adamw.init(list(model.parameters()))},
+                          shs, place)
+        held = sum(t.to_local().untyped_storage().nbytes()
+                   for _, t in sh.leaves_with_path(placed) if isinstance(t, DTensor))
+        assert held == dryrun.shard_bytes(arch.abstract_state(cell), shs)
+        pb = sh.place(batch, arch.input_shardings(mesh, cell), place)
+        _, m = arch.step(cell)(state, batch)
+        with logical_axis_rules(mesh), implicit_replication():
+            _, ms = arch.step(cell)(placed, pb)
+        assert torch.equal(ms["loss"].full_tensor() if isinstance(ms["loss"], DTensor)
+                           else ms["loss"], m["loss"])
+        for p, q in zip(model.parameters(), plain.parameters()):
+            assert torch.equal(p.full_tensor(), q)
+    finally:
+        mesh_mod.release()
