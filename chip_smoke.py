@@ -25,6 +25,11 @@ failure fatal:
    nodes, driven through the op with the launch counts zeroed just before
    and read just after; two launches must give the same bits; the
    kernel's time beside its bound, its plain version and ``index_add_``;
+2c. the machine probe (``launch.roofline.probe``, its full sweep): the
+   stream, bit-op (K2 and its word-wise plain version), dense, collective
+   and trace rows and the card's own ``MachineSpec``, every rate finite and
+   positive, none for collectives on one card, saved to a temporary
+   directory and loaded back equal;
 3. the main path at real scale: stream an LUBM-shaped corpus
    (``synth.lubm_stream``; ~3.0M triples and ~1.32M nodes at 8000
    universities) through ``rdf.dump_stream`` / ``rdf.load_stream``, serve
@@ -73,6 +78,16 @@ failure fatal:
    kernel a call launches, the host time to enqueue one call, and both
    again at a word count that is not a multiple of 4 (rows staged a word
    at a time);
+3c. engine choice under the card's own spec (2c's, passed with
+   ``spec=``): ``choose_engine``'s pick and per-sweep costs on every plan
+   of phase 3's corpus, phase 3b's 46,200-node corpus and the block_dense
+   graph, beside the hand-tuned model's pick and the engine whose warm
+   solve measured fastest in phases 3, 6 and 3b (the median of
+   ``WARM_REPEATS`` cache hits, logged with their spread; a pick slower
+   than the fastest by more than that spread is logged as a finding,
+   one within it as noise); then ``GraphDB(block, spec=...)``
+   answers the auto-selection query as the hand-tuned ``auto`` run did,
+   with the sweeps of the engine it picked;
 4. both segmented-OR kernels against their plain versions on every
    operator of the main path's plans, at the chi each plan's solve starts
    from (its init with the requests' constants) and at its chi after the
@@ -135,6 +150,8 @@ failure fatal:
    Phases 8, 9 and 10 reach no TPU kernel: the launch counts are zeroed
    before each and must stay zero.
 
+Every phase but 3c runs with ``REPRO_MACHINE_SPEC=off``: engines are
+priced by the hand-tuned model whatever spec was saved on the machine.
 The last three lines are the card's name and power limit, a JSON line of
 kernel records, and ``{"ok": true, "device": {...}}``.
 """
@@ -143,6 +160,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -169,6 +187,8 @@ BLOCK_DENSE = dict(n_nodes=16_384, n_labels=2, n_edges=8_000_000)
 AUTO_QUERY = "{ ?a p0 ?b . ?b p1 ?c }"
 INT32_LANES_PER_SM, SMS = 64, 132  # H100 SXM, NVIDIA's data sheet
 CARD = "cuda"  # the device of phases 2b, 3b and 5's own tensors and databases
+# cache hits timed per query and engine in phases 3, 6 and 3b (phase 3c's medians)
+WARM_REPEATS = 5
 # phase 2b's full-size case: the message width of src/repro/configs/gatedgcn.py
 SEGSUM_D = 70
 # phase 5: requests, batch cap, and the deadline every request is given
@@ -560,6 +580,64 @@ def phase_segsum_full(graph, seed: int) -> dict:
 
 
 # --------------------------------------------------------------------- #
+# phase 2c: the machine probe
+# --------------------------------------------------------------------- #
+def phase_probe():
+    """Phase 2c: ``launch.roofline.probe`` on the card at its full sweep
+    (not ``--fast``): every row and the spec logged, every rate finite and
+    positive, no collective rate on one card, and the spec saved with
+    ``save_spec`` into a temporary directory (not ``results/machine/``) and
+    loaded back equal.  Runs before any phase sets TF32, so the dense
+    sweep runs under the setting the dense engine runs under in phase 3b.
+    Returns the card's spec."""
+    import math
+    import tempfile
+
+    import torch
+
+    from repro_torch.engine import machine
+    from repro_torch.launch import roofline
+
+    t0 = time.perf_counter()
+    spec, detail = roofline.probe(backend=CARD)
+    probe_s = time.perf_counter() - t0
+    for r in detail["stream"]["rows"]:
+        log(f"probe stream: {r['words']} int32 words ({8 * r['words']} bytes moved), "
+            f"best {r['seconds'] * 1e3:.4f} ms, {r['bytes_per_s'] / 1e9:.2f} GB/s "
+            f"({r['bytes_per_s'] / HBM_BYTES_PER_S:.3f} of 3.35 TB/s)")
+    for lowering, name in (("shipping", "bitmm_apply (K2)"), ("xla", "bitmm_apply_ref")):
+        for r in detail["bitop"][lowering]["rows"]:
+            log(f"probe bitop {lowering} ({name}): n={r['n']}, V=8, {r['words']} words, "
+                f"best {r['seconds'] * 1e3:.4f} ms, {r['words'] / r['seconds']:.4g} words/s")
+    for r in detail["dense"]["rows"]:
+        log(f"probe dense: [16, {r['n']}] x [{r['n']}, {r['n']}] f32 (TF32 "
+            f"{torch.backends.cuda.matmul.allow_tf32}), best {r['seconds'] * 1e3:.4f} ms, "
+            f"{r['elems_per_s']:.4g} elements/s")
+    log(f"probe collective: {detail['collective']}; trace_s {detail['trace_s']:.6f} s")
+    log(f"phase 2c: MachineSpec ({card_line()}): "
+        f"{json.dumps(spec.to_json(), sort_keys=True)}")
+    for name in ("stream_bytes_per_s", "dense_elems_per_s", "packed_words_per_s",
+                 "packed_words_per_s_xla", "fused_words_per_s", "kernel_launch_s",
+                 "dispatch_s"):
+        value = getattr(spec, name)
+        if not (math.isfinite(value) and value > 0):
+            raise AssertionError(f"probe: {name} = {value}")
+    if not (math.isfinite(spec.trace_s) and spec.trace_s >= 0):
+        raise AssertionError(f"probe: trace_s = {spec.trace_s}")
+    if torch.cuda.device_count() == 1 and spec.collective_bytes_per_s is not None:
+        raise AssertionError("probe: a collective rate on one card")
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        path = machine.save_spec(spec, os.path.join(tmp, "spec.json"))
+        if machine.load_spec(path) != spec:
+            raise AssertionError("probe: the saved spec loads back different")
+    free_card()
+    log(f"phase 2c seconds: {probe_s:.1f} (the probe), "
+        f"{time.perf_counter() - t0:.1f} (the phase)")
+    return spec
+
+
+# --------------------------------------------------------------------- #
 # phase 3: the main path
 # --------------------------------------------------------------------- #
 def load_corpus(n_universities: int, seed: int):
@@ -602,10 +680,13 @@ def sync(db) -> None:
 
 
 def serve(db, *, warm: bool = True, kernel: str = "segor_blocks"):
-    """Run the workload through ``db`` cold, then (``warm``) once more from
-    the plan cache; returns {name: (results, cold_s, warm_s, launches,
-    stages)}: ``launches`` counts the launches of ``kernel`` in the cold
-    run, ``stages`` the engine's per-stage seconds of the warm run."""
+    """Run the workload through ``db`` cold, then (``warm``)
+    :data:`WARM_REPEATS` times more from the plan cache; returns {name:
+    (results, cold_s, warm_s, launches, stages, solves)}: ``launches``
+    counts the launches of ``kernel`` in the cold run, ``warm_s`` and
+    ``stages`` are the medians of the warm runs' seconds and of the
+    engine's per-stage seconds, ``solves`` every warm run's solve
+    seconds."""
     from repro_torch import kernels
 
     out = {}
@@ -616,18 +697,23 @@ def serve(db, *, warm: bool = True, kernel: str = "segor_blocks"):
         sync(db)
         cold = time.perf_counter() - t0
         launches = kernels.LAUNCHES.get(kernel, 0) - before
-        warm_s, stages = None, {}
+        warm_s, stages, solves = None, {}, []
         if warm:
-            before = db.metrics().stage_seconds
-            t0 = time.perf_counter()
-            again = db.execute_many(texts)
-            warm_s = time.perf_counter() - t0
-            after = db.metrics().stage_seconds
-            stages = {k: after[k] - before.get(k, 0.0) for k in after}
-            for a, b in zip(res, again):
-                if not b.cache_hit or a.sweeps != b.sweeps:
-                    raise AssertionError(f"{name}: warm run missed the plan cache")
-        out[name] = (res, cold, warm_s, launches, stages)
+            walls, splits = [], []
+            for _ in range(WARM_REPEATS):
+                before = db.metrics().stage_seconds
+                t0 = time.perf_counter()
+                again = db.execute_many(texts)
+                walls.append(time.perf_counter() - t0)
+                after = db.metrics().stage_seconds
+                splits.append({k: after[k] - before.get(k, 0.0) for k in after})
+                for a, b in zip(res, again):
+                    if not b.cache_hit or a.sweeps != b.sweeps:
+                        raise AssertionError(f"{name}: warm run missed the plan cache")
+            warm_s = statistics.median(walls)
+            stages = {k: statistics.median(split[k] for split in splits) for k in splits[0]}
+            solves = [split["solve"] for split in splits]
+        out[name] = (res, cold, warm_s, launches, stages, solves)
     return out
 
 
@@ -644,6 +730,11 @@ def same_results(name, got, want, *, sweeps=True):
             raise AssertionError(f"{name}: bindings differ")
         if sweeps and a.sweeps != b.sweeps:
             raise AssertionError(f"{name}: sweeps {a.sweeps} != {b.sweeps}")
+
+
+def warm_solve(runs) -> dict[str, list[float]]:
+    """{workload name: its warm runs' solve seconds} of :func:`serve`'s runs."""
+    return {name: solves for name, (*_rest, solves) in runs.items()}
 
 
 def phase_main_path(graph):
@@ -720,7 +811,7 @@ def phase_cross_checks(graph, runs):
     log(f"cpu GraphDB (plain versions): survivors, bindings and sweeps equal "
         f"on every query ({time.perf_counter() - t0:.1f}s)")
     t0 = time.perf_counter()
-    jac = serve(GraphDB(graph, engine="jacobi_packed"), warm=False)
+    jac = serve(GraphDB(graph, engine="jacobi_packed"))
     for name, (res, *_rest) in runs.items():
         same_results(name, res, jac[name][0], sweeps=False)
     log(f"jacobi_packed on the card: survivors and bindings equal "
@@ -808,7 +899,8 @@ def phase_partitioned(graph, runs, jac):
     resumes a plan, its answers equal the cold run's; the same microbatch
     over a mesh of every visible card; K1 at the layout's largest block
     against its plain version and timed; then the serving driver with
-    ``--engine partitioned --devices <visible cards>`` in process."""
+    ``--engine partitioned --devices <visible cards>`` in process.  Returns
+    the warm run's solve seconds of each workload query."""
     import contextlib
     import io
 
@@ -837,7 +929,7 @@ def phase_partitioned(graph, runs, jac):
     launches = kernels.launch_counts()
     if not launches.get("segor_blocks"):
         raise AssertionError("the partitioned path never launched segor_blocks")
-    for name, (res, cold, warm, n_launch, stages) in part.items():
+    for name, (res, cold, warm, n_launch, stages, _solves) in part.items():
         same_results(name, res, runs[name][0], sweeps=False)
         same_results(name, res, jac[name][0])
         want = expected[name]
@@ -899,6 +991,7 @@ def phase_partitioned(graph, runs, jac):
     log(f"launch.serve --engine partitioned --devices {n_cards} in process: "
         f"{time.perf_counter() - t0:.1f}s; phase 6 seconds: "
         f"{time.perf_counter() - t_phase:.1f}")
+    return warm_solve(part)
 
 
 # --------------------------------------------------------------------- #
@@ -1365,6 +1458,7 @@ def phase_dense_tier(seed: int):
     log(f"bitmm kernels == plain versions on every main-path operator, at "
         f"the initial chi and after one sweep ({n_ops} checks)")
     fused_rec, packed_rec = time_bitmm(plans_of(fused_db)[0][1], sm_clock_hz())
+    dense_plans = [(name, plan.csoi) for name, plan in plans_of(fused_db)]
     del fused_db
     free_card()
     packed_db, packed, packed_launches = dense_tier_path(
@@ -1372,7 +1466,7 @@ def phase_dense_tier(seed: int):
     del packed_db
     free_card()
     t0 = time.perf_counter()
-    sparse = serve(GraphDB(graph, engine="sparse"), warm=False)
+    sparse = serve(GraphDB(graph, engine="sparse"))
     free_card()
     for name, (res, *_rest) in fused.items():
         same_results(name, res, sparse[name][0], sweeps=False)
@@ -1384,7 +1478,7 @@ def phase_dense_tier(seed: int):
             ("packed_fused", fused, "bitmm_apply_packed"),
             ("packed", packed, "bitmm_packed"),
         ):
-            res, cold, warm, n_launch, _ = runs[name]
+            res, cold, warm, n_launch, *_ = runs[name]
             log(f"dense tier query {name} ({engine}): requests {len(res)}, "
                 f"batch {res[0].batch}, sweeps {res[0].sweeps}, cold "
                 f"{cold:.4f}s, warm {warm:.4f}s, {kernel} launches per query "
@@ -1421,6 +1515,9 @@ def phase_dense_tier(seed: int):
     log(f"auto on the {BLOCK_DENSE} random graph: {plan.cost.reason}; "
         f"{auto_s:.3f}s cold ({stages(auto)}), sweeps {auto.sweeps}, "
         f"launches {auto_launches}")
+    block_plans = [("auto_query", plan.csoi)]
+    block_results = {"packed_fused": auto}
+    block_solve = {"packed_fused": warm_solves(auto_db)}
     del auto_db, plan
     free_card()
     for engine in ("dense", "packed", "sparse"):
@@ -1429,6 +1526,8 @@ def phase_dense_tier(seed: int):
         other = other_db.query(AUTO_QUERY)
         torch.cuda.synchronize()
         other_s = time.perf_counter() - t1
+        block_results[engine] = other
+        block_solve[engine] = warm_solves(other_db)
         del other_db
         free_card()
         if not np.array_equal(auto.survivor_mask, other.survivor_mask) or any(
@@ -1449,11 +1548,127 @@ def phase_dense_tier(seed: int):
                      max_abs_err=errs[0])
     packed_rec.update(launches=packed_launches.get("bitmm_packed", 0),
                       max_abs_err=errs[1])
-    return [
+    records = [
         {"name": "bitmm_apply_packed", **KERNELS["bitmm_apply_packed"],
          **fused_rec},
         {"name": "bitmm_packed", **KERNELS["bitmm_packed"], **packed_rec},
     ]
+    corpora = [
+        dict(label=f"{n}-node LUBM corpus", graph=graph, plans=dense_plans,
+             solve={"packed_fused": warm_solve(fused), "packed": warm_solve(packed),
+                    "sparse": warm_solve(sparse)}),
+        dict(label=f"{BLOCK_DENSE['n_nodes']}-node block_dense graph", graph=block,
+             plans=block_plans, solve={e: {"auto_query": t} for e, t in block_solve.items()},
+             results=block_results, auto=auto),
+    ]
+    return records, corpora
+
+
+def warm_solves(db) -> list[float]:
+    """The solve seconds of :data:`WARM_REPEATS` cache hits of
+    :data:`AUTO_QUERY` on ``db``."""
+    return [warm_query(db).timings["solve"] for _ in range(WARM_REPEATS)]
+
+
+def warm_query(db):
+    """:data:`AUTO_QUERY` again on ``db``, from its plan cache."""
+    import torch
+
+    rs = db.query(AUTO_QUERY)
+    torch.cuda.synchronize()
+    if not rs.cache_hit:
+        raise AssertionError("the repeated block_dense query missed the plan cache")
+    return rs
+
+
+def phase_calibrated(spec, corpora) -> None:
+    """Phase 3c: ``choose_engine`` under the card's own spec (phase 2c's,
+    passed with ``spec=``) on every plan of phase 3's corpus, phase 3b's
+    46,200-node corpus and the block_dense graph: its pick and per-sweep
+    costs beside the hand-tuned model's pick and the engine whose warm
+    solve measured fastest there (phases 3, 6 and 3b timed
+    :data:`WARM_REPEATS` cache hits each; the median, with the spread
+    from the fastest to the slowest hit).  A pick slower than the fastest
+    by more than the larger of the two engines' spreads is logged as a
+    finding; one within it as noise.  Then one
+    ``GraphDB(block, spec=spec)`` query end to end, priced by that spec:
+    survivors and bindings equal the hand-tuned ``auto`` run's, sweeps the
+    phase 3b run's of the engine it picked."""
+    import torch
+
+    from repro_torch.core import sparql
+    from repro_torch.db import GraphDB
+    from repro_torch.engine import canonicalize, cost
+
+    t_phase = time.perf_counter()
+    verdicts = {"fastest": 0, "within noise": 0, "finding": 0}
+    for corpus in corpora:
+        g = corpus["graph"]
+        by_name: dict[str, list] = {}
+        for name, csoi in corpus["plans"]:
+            by_name.setdefault(name, []).append(csoi)
+        for name, csois in by_name.items():
+            picks = []
+            for k, csoi in enumerate(csois):
+                est = cost.choose_engine(g, csoi, backend="cuda", spec=spec)
+                hand = cost.choose_engine(g, csoi, backend="cuda", model=cost.HAND_TUNED)
+                picks.append(est.engine)
+                part = f" part {k}" if len(csois) > 1 else ""
+                log(f"phase 3c {corpus['label']}, {name}{part}: the card's spec picks "
+                    f"{est.engine}, per-sweep seconds "
+                    f"{', '.join(f'{e} {c:.4g}' for e, c in est.costs.items())}; the "
+                    f"hand-tuned model picks {hand.engine}")
+            measured = {e: times[name] for e, times in corpus["solve"].items()}
+            med = {e: statistics.median(ts) for e, ts in measured.items()}
+            spread = {e: max(ts) - min(ts) for e, ts in measured.items()}
+            fastest = min(med, key=med.get)
+            pick = picks[0] if len(set(picks)) == 1 else None
+            if pick == fastest:
+                kind, verdict = "fastest", "the pick is the fastest"
+            elif pick in med and (med[pick] - med[fastest]
+                                  <= max(spread[pick], spread[fastest])):
+                kind = "within noise"
+                verdict = (f"the pick {pick} is within noise of the fastest: "
+                           f"{med[pick] - med[fastest]:.4f} s slower, spread "
+                           f"{max(spread[pick], spread[fastest]):.4f} s")
+            else:
+                kind = "finding"
+                verdict = (f"finding: the pick {'/'.join(picks)} is not the fastest"
+                           + (f", {med[pick] - med[fastest]:.4f} s slower, beyond the "
+                              f"spread {max(spread[pick], spread[fastest]):.4f} s"
+                              if pick in med else ", and was not timed here"
+                              if pick else ", its parts picked differently"))
+            verdicts[kind] += 1
+            log(f"phase 3c {corpus['label']}, {name}: warm solve seconds, median of "
+                f"{WARM_REPEATS} (min-max) "
+                + ", ".join(f"{e} {med[e]:.4f} ({min(measured[e]):.4f}-"
+                            f"{max(measured[e]):.4f})" for e in sorted(med, key=med.get))
+                + f"; fastest {fastest}; {verdict}")
+    block = corpora[-1]
+    db = GraphDB(block["graph"], spec=spec)
+    t0 = time.perf_counter()
+    rs = db.query(AUTO_QUERY)
+    torch.cuda.synchronize()
+    query_s = time.perf_counter() - t0
+    plan, _ = db._engine.plan_for(canonicalize(sparql.parse(AUTO_QUERY)))
+    if f"[{spec.fingerprint}]" not in plan.cost.reason:
+        raise AssertionError(f"the calibrated query was not priced by the card's spec: "
+                             f"{plan.cost.reason}")
+    same_results("calibrated block_dense query", [rs], [block["auto"]], sweeps=False)
+    ref = block["results"].get(rs.engine)
+    if ref is None:  # an engine phase 3b did not run on this graph
+        ref = GraphDB(block["graph"], engine=rs.engine).query(AUTO_QUERY)
+    if rs.sweeps != ref.sweeps:
+        raise AssertionError(f"calibrated block_dense query: sweeps {rs.sweeps} != "
+                             f"{rs.engine}'s {ref.sweeps}")
+    del db, plan
+    free_card()
+    log(f"phase 3c: GraphDB(block_dense, spec=the card's spec) query: {rs.engine}, "
+        f"{query_s:.3f}s cold ({stages(rs)}), sweeps {rs.sweeps}; survivors and "
+        f"bindings equal the hand-tuned auto run's ({block['auto'].engine}); "
+        f"calibrated picks over {sum(verdicts.values())} queries: "
+        f"{', '.join(f'{k} {n}' for k, n in verdicts.items())}; "
+        f"phase 3c seconds {time.perf_counter() - t_phase:.1f}")
 
 
 # --------------------------------------------------------------------- #
@@ -1831,7 +2046,7 @@ def phase_kernel_times(db, runs, launches):
         record = record or got
     del flush
     free_card()
-    for name, (res, cold, warm, n_launch, stages) in runs.items():
+    for name, (res, cold, warm, n_launch, stages, _solves) in runs.items():
         split = ", ".join(f"{k} {t:.4f}s" for k, t in sorted(stages.items()))
         log(f"query {name}: requests {len(res)}, batch {res[0].batch}, "
             f"sweeps {res[0].sweeps}, cold {cold:.4f}s, warm {warm:.4f}s "
@@ -3159,6 +3374,9 @@ def main() -> int:
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
 
+    # every phase but 3c prices engines with the hand-tuned model, whatever
+    # spec an operator saved on this machine; 3c passes the card's own spec
+    os.environ["REPRO_MACHINE_SPEC"] = "off"
     import torch
 
     if not torch.cuda.is_available():
@@ -3186,14 +3404,23 @@ def main() -> int:
         f"(max err {err:.3g}), the same bits on every second launch")
     graph = load_corpus(args.universities, args.seed)
     segsum_record = phase_segsum_full(graph, args.seed)
+    log("phase 2c: the machine probe")
+    card_spec = phase_probe()
     log("phase 3: main path")
     db, runs, launches = phase_main_path(graph)
     jac = phase_cross_checks(graph, runs)
     log("phase 6: the partitioned engine")
-    phase_partitioned(graph, runs, jac)
+    part_solve = phase_partitioned(graph, runs, jac)
     log("phase 5: serving")
     phase_serving(graph, args.universities, args.seed)
-    dense_records = phase_dense_tier(args.seed)
+    dense_records, dense_corpora = phase_dense_tier(args.seed)
+    log("phase 3c: engine choice under the card's spec")
+    phase_calibrated(card_spec, [dict(
+        label=f"{graph.n_nodes}-node LUBM corpus", graph=graph,
+        plans=[(name, plan.csoi) for name, plan in plans_of(db)],
+        solve={"sparse": warm_solve(runs), "jacobi_packed": warm_solve(jac),
+               "partitioned": part_solve})] + dense_corpora)
+    del dense_corpora
     log("phase 4: kernels at main-path shapes")
     records = (phase_kernel_times(db, runs, launches) + dense_records
                + [segsum_record])

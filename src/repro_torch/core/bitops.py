@@ -5,7 +5,10 @@ matrices.  Packed words are ``torch.int32`` tensors holding the exact bit
 pattern of the JAX package's ``uint32`` words: bit ``i`` of word ``w`` is
 element ``32*w + i``.  ``int32`` is used because PyTorch's CPU ``uint32``
 lacks ``~``, ``>>``, ``<<``, ``index_put`` and ``scatter_reduce``.  ``>>`` on
-``int32`` is arithmetic, so every bit extraction masks with ``& 1``.
+``int32`` is arithmetic, so every bit extraction masks with ``& 1``.  Shifts
+go through ``torch.bitwise_left_shift`` / ``bitwise_right_shift``: on a
+DTensor (the sharded sweeps) the ``<<`` and ``>>`` operators return their
+input unshifted (torch 2.13).
 
 Host-side helpers (``pack_np`` / ``unpack_np`` / ``ones_mask``) keep the
 reference's numpy ``uint32`` layout; :func:`to_words` moves such an array
@@ -18,7 +21,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.distributed.tensor import DTensor, Replicate
 
 WORD = 32
 
@@ -44,19 +46,14 @@ def pack(bits: torch.Tensor) -> torch.Tensor:
         b = torch.nn.functional.pad(b, (0, pad))
     b = b.reshape(bits.shape[:-1] + (w, WORD))
     shifts = torch.arange(WORD - 1, dtype=torch.int32, device=bits.device)
-    low = (b[..., : WORD - 1] << shifts).sum(-1, dtype=torch.int32)
-    return low | (b[..., WORD - 1] << (WORD - 1))
+    low = torch.bitwise_left_shift(b[..., : WORD - 1], shifts).sum(-1, dtype=torch.int32)
+    return low | torch.bitwise_left_shift(b[..., WORD - 1], WORD - 1)
 
 
 def unpack(packed: torch.Tensor, n: int) -> torch.Tensor:
     """Inverse of :func:`pack`: ``packed[..., w] -> bool[..., n]``."""
     shifts = torch.arange(WORD, dtype=torch.int32, device=packed.device)
-    words = packed[..., None]
-    if isinstance(packed, DTensor):  # DTensor's shift does not broadcast
-        words = words.expand(*packed.shape, WORD)
-        shifts = DTensor.from_local(shifts, packed.device_mesh,
-                                    [Replicate()] * packed.device_mesh.ndim)
-    bits = (words >> shifts) & 1
+    bits = torch.bitwise_right_shift(packed[..., None], shifts) & 1
     bits = bits.reshape(packed.shape[:-1] + (packed.shape[-1] * WORD,))
     return bits[..., :n].to(torch.bool)
 

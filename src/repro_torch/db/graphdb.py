@@ -93,6 +93,7 @@ class GraphDB:
         mesh=None,
         n_blocks: int | None = None,
         incremental: bool = True,
+        spec=None,
     ):
         """``engine`` picks the fixpoint engine ("auto" = cost-based):
         dense / packed / packed_fused / sparse / jacobi_packed / partitioned
@@ -109,7 +110,11 @@ class GraphDB:
         number of destination blocks (default: one per mesh device, 4
         without a mesh).  ``incremental``
         enables warm-resume plan maintenance across mutations (DESIGN.md
-        Sect. 8); disable it to force every superseded plan cold."""
+        Sect. 8); disable it to force every superseded plan cold.  ``spec``
+        (a :class:`repro_torch.engine.machine.MachineSpec`) pins the machine
+        calibration every cost decision prices with; ``None`` takes the
+        machine's persisted spec (``REPRO_MACHINE_SPEC``; the hand-tuned
+        model when there is none)."""
         if graph is None:
             graph = _empty_graph()
         if graph.node_names is None or graph.label_names is None:
@@ -138,6 +143,7 @@ class GraphDB:
             mesh=mesh,
             n_blocks=n_blocks,
             incremental=incremental,
+            spec=spec,
         )
 
     @classmethod

@@ -269,6 +269,53 @@ _IDENTITY = {"sum": 0.0, "amax": float("-inf"), "amin": float("inf")}
 _PARTIAL = {"sum": "sum", "amax": "max", "amin": "min"}
 
 
+def _local_reduce(v: torch.Tensor, i: torch.Tensor, n: int, reduce: str) -> torch.Tensor:
+    """One shard's reduction of its rows ``v`` into all ``n`` segments,
+    the identity where it has none."""
+    ident = _IDENTITY[reduce]
+    if not v.dtype.is_floating_point and reduce != "sum":
+        ident = torch.iinfo(v.dtype).min if reduce == "amax" else torch.iinfo(v.dtype).max
+    out = torch.full((n, *v.shape[1:]), ident, dtype=v.dtype, device=v.device)
+    i = i.to(torch.int64)
+    if reduce == "sum":
+        return out.index_add(0, i, v)
+    ix = i.reshape(-1, *([1] * (v.dim() - 1))).expand_as(v)
+    return out.scatter_reduce(0, ix, v, reduce, include_self=True)
+
+
+class _ShardedExtreme(torch.autograd.Function):
+    """One edge shard's partial max or min, whose backward is exact over
+    every shard: the gradient of a segment goes to the edges whose value
+    equals the segment's extreme over all shards, split evenly among them
+    (the tie count summed over all shards), as ``scatter_reduce``'s and
+    JAX's ``segment_max`` gradients split it.  ``groups`` are the mesh
+    dims that shard the edges (none: the collectives are skipped); the two
+    cross-shard reductions are functional collectives over them."""
+
+    @staticmethod
+    def forward(ctx, v, i, n, reduce, groups):
+        out = _local_reduce(v, i, n, reduce)
+        ctx.save_for_backward(v, i, out)
+        ctx.reduce, ctx.groups = reduce, groups
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed import _functional_collectives as funcol
+
+        v, i, extreme = ctx.saved_tensors
+        op = _PARTIAL[ctx.reduce]
+        for group in ctx.groups:
+            extreme = funcol.all_reduce(extreme, op, group)
+        ix = i.to(torch.int64)
+        hit = v == extreme[ix]
+        ties = torch.zeros_like(grad).index_add(0, ix, hit.to(grad.dtype))
+        for group in ctx.groups:
+            ties = funcol.all_reduce(ties, "sum", group)
+        share = grad[ix] / torch.clamp(ties[ix], min=1.0)
+        return torch.where(hit, share, torch.zeros_like(share)), None, None, None, None
+
+
 def segment_reduce(vals: torch.Tensor, idx: torch.Tensor, n: int, reduce: str):
     """The ``reduce`` ("sum", "amax" or "amin") of the rows of ``vals [E,
     ...]`` into ``n`` segments by ``idx [E]``, on DTensors whose edge dim
@@ -277,26 +324,22 @@ def segment_reduce(vals: torch.Tensor, idx: torch.Tensor, n: int, reduce: str):
     partial reduction (a ``Partial`` DTensor; reading it reduces across
     the shards).  An empty segment is the identity (±inf for a float max
     and min, the dtype's extreme for an integer one).  The gradient is
-    exact for the sum; for max and min every shard routes it to its own
-    extreme, so it is exact only where one shard holds a segment's
-    extreme."""
+    exact across shards: for the sum every edge takes its segment's
+    gradient; for max and min the backward all-reduces each segment's
+    extreme and its tie count over the edge-sharding mesh dims, and only
+    the edges equal to the extreme take the gradient, split evenly among
+    them."""
     mesh = vals.device_mesh if isinstance(vals, DTensor) else idx.device_mesh
     vals, idx = as_dtensor(vals, mesh), as_dtensor(idx, mesh)
     ipl = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
                 for p in idx.placements)
     opl = tuple(Partial(_PARTIAL[reduce]) if isinstance(p, Shard) else p for p in ipl)
+    groups = tuple((mesh, k) for k, p in enumerate(ipl) if isinstance(p, Shard))
 
     def local(v, i):
-        ident = _IDENTITY[reduce]
-        if not v.dtype.is_floating_point and reduce != "sum":
-            ident = (torch.iinfo(v.dtype).min if reduce == "amax"
-                     else torch.iinfo(v.dtype).max)
-        out = torch.full((n, *v.shape[1:]), ident, dtype=v.dtype, device=v.device)
-        i = i.to(torch.int64)
         if reduce == "sum":
-            return out.index_add(0, i, v)
-        ix = i.reshape(-1, *([1] * (v.dim() - 1))).expand_as(v)
-        return out.scatter_reduce(0, ix, v, reduce, include_self=True)
+            return _local_reduce(v, i, n, reduce)
+        return _ShardedExtreme.apply(v, i, n, reduce, groups)
 
     return local_map(local, list(opl), (ipl, ipl), mesh)(vals, idx)
 

@@ -1,7 +1,8 @@
 """Machine capability specs for the calibrated cost model (DESIGN.md 13).
 
-A :class:`MachineSpec` is the output of the JAX package's ERT-style probe
-(``benchmarks/roofline.py``; the port has no probe yet): a handful of measured machine ceilings —
+A :class:`MachineSpec` is the output of the port's ERT-style probe
+(:mod:`repro_torch.launch.roofline`, the twin of the JAX package's
+``benchmarks/roofline.py``): a handful of measured machine ceilings —
 sustained streaming bandwidth, packed bit-op throughput under the shipping
 and the word-wise XLA lowerings, dense boolean-matmul efficiency, per-call
 kernel-launch and XLA-dispatch overheads, the jit trace+compile latency,
@@ -32,6 +33,7 @@ import hashlib
 import json
 import os
 import platform
+import tempfile
 
 SPEC_VERSION = 1
 ENV_VAR = "REPRO_MACHINE_SPEC"
@@ -68,6 +70,10 @@ class MachineSpec:
     probed_at: str = ""  # ISO timestamp (informational only)
     fast: bool = False  # reduced --fast sweep
     version: int = SPEC_VERSION
+
+    def to_json(self) -> dict:
+        """Plain-dict form for persistence (round-trips via ``load_spec``)."""
+        return dataclasses.asdict(self)
 
 
 def machine_fingerprint(backend: str = "cuda") -> str:
@@ -108,6 +114,25 @@ def spec_path(fingerprint: str) -> str:
     return os.path.join(SPEC_DIR, f"{fingerprint}.json")
 
 
+def save_spec(spec: MachineSpec, path: str | None = None) -> str:
+    """Persist ``spec`` as JSON (atomic rename) and return the path."""
+    path = path or spec_path(spec.fingerprint)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    fd, tmp = tempfile.mkstemp(
+        dir=os.path.dirname(path) or ".", suffix=".tmp"
+    )
+    try:
+        with os.fdopen(fd, "w") as f:
+            json.dump(spec.to_json(), f, indent=1, sort_keys=True)
+            f.write("\n")
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    clear_spec_cache()
+    return path
+
+
 def load_spec(path: str) -> MachineSpec:
     """Load a persisted spec, tolerating fields added by later versions."""
     with open(path) as f:
@@ -117,6 +142,11 @@ def load_spec(path: str) -> MachineSpec:
 
 
 _cache: dict[tuple[str | None, str], MachineSpec | None] = {}
+
+
+def clear_spec_cache() -> None:
+    """Drop memoized :func:`default_spec` results (tests, fresh probes)."""
+    _cache.clear()
 
 
 def default_spec(backend: str = "cuda") -> MachineSpec | None:

@@ -17,7 +17,9 @@
   tensor on the CPU.
 
 Words are ``int32`` bit-views of the reference's ``uint32``; ``int32 >>``
-is arithmetic, so every extracted bit is masked with ``& 1``.
+is arithmetic, so every extracted bit is masked with ``& 1``.  Shifts are
+the ``torch.bitwise_*_shift`` functions, which DTensors compute (their
+``<<`` / ``>>`` operators return the input unshifted).
 """
 from __future__ import annotations
 
@@ -31,8 +33,8 @@ from repro_torch.distributed.ctx import logical_spec, segment_reduce
 
 def edge_bits(frontier_p: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     """``int32 [V, *src.shape]``: bit ``src % 32`` of word ``src // 32``."""
-    word = frontier_p[:, src >> 5]
-    return (word >> (src & 31)) & 1
+    word = frontier_p[:, torch.bitwise_right_shift(src, 5)]
+    return torch.bitwise_right_shift(word, src & 31) & 1
 
 
 def segor_words(
@@ -68,8 +70,8 @@ def segor_words(
     # (the sign bit) is ORed in on its own
     lanes = y[:n_pad].view(nw, bitops.WORD, v)
     shifts = torch.arange(bitops.WORD - 1, dtype=torch.int32, device=y.device)
-    low = (lanes[:, :-1] << shifts[:, None]).sum(1, dtype=torch.int32)
-    words = low | (lanes[:, -1] << (bitops.WORD - 1))  # [nw, V]
+    low = torch.bitwise_left_shift(lanes[:, :-1], shifts[:, None]).sum(1, dtype=torch.int32)
+    words = low | torch.bitwise_left_shift(lanes[:, -1], bitops.WORD - 1)  # [nw, V]
     return words.T.contiguous()
 
 

@@ -6,7 +6,8 @@ on the CPU, a two-replica ``AsyncServer`` on the card, the LM's train
 step, attention, decode and ``launch.train`` on the card against the CPU,
 and the MoE LMs' train step and dispatch, the GNNs' ``GNNArch.step`` and the
 recsys model's step, EmbeddingBag, retrieval and sharded step on
-the card against the CPU.  A CUDA kernel has no CPU mode, so without a
+the card against the CPU, and the machine probe's ``--fast`` sweep on the
+card.  A CUDA kernel has no CPU mode, so without a
 card these skip.  The file imports neither JAX nor the JAX package, so it
 runs where JAX is not installed:
 
@@ -831,3 +832,31 @@ def test_recsys_sharded_step_on_host_mesh_is_bit_equal(cuda_device):
             assert torch.equal(p.full_tensor(), q)
     finally:
         mesh_mod.release()
+
+
+def test_roofline_probe_on_card(cuda_device, tmp_path):
+    """The machine probe's ``--fast`` sweep on the card: finite, positive
+    rates, the card's own name and count, the fused rate the shipping
+    kernel's, no collective rate on one card, the kernel launched, and a
+    spec that saves and loads back equal."""
+    import math
+
+    from repro_torch.engine import machine
+    from repro_torch.launch import roofline
+
+    kernels.reset_launches()
+    spec, detail = roofline.probe(fast=True)
+    assert kernels.launch_counts().get("bitmm_apply_packed", 0) > 0
+    assert spec.backend == "cuda"
+    assert spec.device_kind == torch.cuda.get_device_name(0)
+    assert spec.n_devices == torch.cuda.device_count()
+    for name in ("stream_bytes_per_s", "dense_elems_per_s", "packed_words_per_s",
+                 "packed_words_per_s_xla", "fused_words_per_s", "kernel_launch_s",
+                 "dispatch_s"):
+        value = getattr(spec, name)
+        assert math.isfinite(value) and value > 0, name
+    assert math.isfinite(spec.trace_s) and spec.trace_s >= 0
+    assert spec.fused_words_per_s == spec.packed_words_per_s
+    assert (spec.collective_bytes_per_s is None) == (torch.cuda.device_count() < 2)
+    path = machine.save_spec(spec, str(tmp_path / "spec.json"))
+    assert machine.load_spec(path) == spec

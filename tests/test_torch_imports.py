@@ -39,6 +39,7 @@ SLICE_MODULES = (
     "repro_torch.distributed.fault",
     "repro_torch.launch",
     "repro_torch.launch.serve",
+    "repro_torch.launch.roofline",
     "repro_torch.kernels.segsum.ops",
     "repro_torch.kernels.bitmm.ops",
     "repro_torch.distributed.ctx",
