@@ -146,9 +146,17 @@ failure fatal:
    candidates, top-100 checked against ``torch.topk`` on the CPU); (d) the
    1x1 mesh over the card: 10b's state placed by ``state_shardings`` takes
    one step equal bit for bit to the unsharded step, is saved and restored
-   with ``shardings=``, and holds the bytes the dry-run's accounting gives.
-   Phases 8, 9 and 10 reach no TPU kernel: the launch counts are zeroed
-   before each and must stay zero.
+   with ``shardings=``, and holds the bytes the dry-run's accounting gives;
+   (e) on such a mesh and phase 3b's corpus, the sharded dual-simulation
+   sweeps of the dry-run's cells over DTensor operands that
+   ``DualsimArch.place`` lays out for K1: one ``sparse`` sweep of a
+   query-parallel batch of two serving-template queries
+   (``batch16_sparse``'s placement and ``chi_spec``) and one
+   ``solve_partitioned`` sweep over 4 DTensor blocks (``q_partitioned``'s),
+   chi's words equal to the same sweeps on the plain CPU operands bit for
+   bit, and K1 launched in each (the counts zeroed before each sweep).
+   Phases 8, 9 and 10a-10d reach no TPU kernel: the launch counts are
+   zeroed before each and must stay zero.
 
 Every phase but 3c runs with ``REPRO_MACHINE_SPEC=off``: engines are
 priced by the hand-tuned model whatever spec was saved on the machine.
@@ -3340,10 +3348,81 @@ def phase_recsys_sharding(spec, cell, state, batch) -> None:
     free_card()
 
 
+def phase_dualsim_sharding(seed: int = 0) -> None:
+    """Phase 10e: the dual-simulation sweeps of the dry-run's cells over
+    DTensor operands on 10d's 1x1 (data, model) mesh over the card, on
+    phase 3b's corpus: a batch of two serving-template queries placed by
+    ``batch16_sparse``'s rules and swept once by its step (query variables
+    over ``data``, words over ``model``), and the first query in 4
+    destination blocks placed by ``q_partitioned``'s (blocks over ``(data,
+    model)``) and swept once by its step.  ``DualsimArch.place`` lays each
+    shard's edges out for K1 on the card; the launch counts are zeroed
+    before the sweeps, and K1 must have launched in each (and nothing
+    else).  chi's packed words must equal the same steps' on the plain CPU
+    operands bit for bit."""
+    import numpy as np
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch import configs, kernels
+    from repro_torch.core import bitops, dualsim, soi, sparql
+    from repro_torch.distributed.ctx import logical_axis_rules
+    from repro_torch.engine import batcher
+    from repro_torch.launch import mesh as mesh_mod
+
+    t0 = time.perf_counter()
+    graph = load_corpus(DENSE_UNIVERSITIES, seed)
+    parts = [soi.build_soi(sparql.parse(SERVE_TEMPLATE.format(uni=f"Univ{i}")))
+             for i in range(2)]
+    arch = configs.get("dualsim-lubm")
+
+    def words(chi):
+        if isinstance(chi, DTensor):
+            chi = chi.full_tensor()
+        return bitops.words_np(bitops.pack(chi.cpu()))
+
+    cases = (
+        ("batch16_sparse", dualsim.make_sparse_operands(
+            soi.compile_soi(batcher.batched_soi(parts), graph), graph, device="cpu")),
+        ("q_partitioned", dualsim.make_partitioned_operands(
+            soi.compile_soi(parts[0], graph), graph, 4, device="cpu")),
+    )
+    mesh = mesh_mod.make_host_mesh()
+    try:
+        for name, ops in cases:
+            cell = arch.cells()[name]
+            step = arch.step(cell)
+            want, _ = step(ops, {})
+            placed = arch.place(ops, cell, mesh)
+            kernels.reset_launches()
+            t1 = time.perf_counter()
+            with logical_axis_rules(mesh), implicit_replication():
+                got, _ = step(placed, {})
+            got_w = words(got)
+            card_s = time.perf_counter() - t1
+            launches = kernels.launch_counts()
+            if not launches.get("segor_blocks") or any(
+                    v for k, v in launches.items() if k != "segor_blocks"):
+                raise AssertionError(f"phase 10e: the sharded {name} sweep launched "
+                                     f"{launches}, not K1 alone")
+            if got.device_mesh.device_type != "cuda" or not np.array_equal(
+                    got_w, words(want)):
+                raise AssertionError(f"phase 10e: the sharded {name} sweep differs from "
+                                     f"the plain sweep")
+            log(f"phase 10e: {name} sweep over DTensor operands on the card (chi "
+                f"{tuple(want.shape)}, {int(want.sum())} live, placements {got.placements}) "
+                f"== the plain CPU sweep bit for bit; launches {launches}; {card_s:.2f} s")
+    finally:
+        mesh_mod.release()
+    free_card()
+    log(f"phase 10e dualsim seconds: {time.perf_counter() - t0:.1f}")
+
+
 def phase_recsys(seed: int) -> None:
     """Phase 10, the recsys family: 10a parity, 10b dcn-v2 training at full
     width, 10c serving and retrieval, 10d sharding on the card; the launch
-    counts zeroed before and zero after."""
+    counts zeroed before and zero after.  Then 10e, the dual-simulation
+    sweeps on the same kind of mesh, which launch K1 alone."""
     from repro_torch import kernels
 
     log("phase 10: the recsys family")
@@ -3356,6 +3435,7 @@ def phase_recsys(seed: int) -> None:
     del state, batch
     free_card()
     no_launches("10", t_phase)
+    phase_dualsim_sharding(seed)
 
 
 def best_of_two(fn, *args):

@@ -125,31 +125,60 @@ class DualsimArch:
 
     def step(self, cell: Cell) -> Callable:
         """One sweep of the cell's engine: ``step(operands, {}) -> (bool chi,
-        1)``."""
+        1)``.  On DTensor operands the sparse cells split chi as ``init``
+        is (:meth:`spec_for`, the reference's ``chi_spec``)."""
         if cell.name == "block_dense":
             return lambda state, batch: dualsim.solve_dense(state, max_sweeps=1)
         if cell.name == "q_partitioned":
             return lambda state, batch: dualsim.solve_partitioned(state, max_sweeps=1)
-        return lambda state, batch: dualsim.solve_sparse(state, max_sweeps=1)
+
+        def sweep(state, batch):
+            mesh = getattr(state.init, "device_mesh", None)
+            chi_spec = None if mesh is None else self.spec_for("init", cell, mesh)
+            return dualsim.solve_sparse(state, max_sweeps=1, chi_spec=chi_spec)
+
+        return sweep
 
     # ------------------------------------------------------------------ #
+    def spec_for(self, field: str, cell: Cell, mesh) -> P:
+        """The placement of the operands' ``field`` in ``cell`` on ``mesh``:
+        the one rule that :meth:`state_shardings` applies to the abstract
+        state, :meth:`place` to real operands, and :meth:`step` takes chi's
+        split from (chi is split as ``init`` is).  A batch's query variables
+        go over ``data`` (query parallelism) and its words over ``model``;
+        one query's words over every non-pod axis; the partitioned blocks
+        over those axes, as chi's words.  Axes the mesh lacks are dropped."""
+        if cell.name == "block_dense":
+            spec = sh.dualsim_dense_specs(mesh).get(field, P())
+        elif field == "init" and cell.name == "batch16_sparse":
+            spec = P("data", "model")
+        elif field in ("edge_src_b", "edge_dst_b"):
+            spec = P(("data", "model"), None)
+        else:
+            spec = sh.dualsim_sparse_specs(mesh).get(field, P())
+        names = mesh.mesh_dim_names
+
+        def present(axes):
+            if isinstance(axes, str):
+                return axes if axes in names else None
+            return tuple(a for a in axes or () if a in names) or None
+
+        return P(*(present(a) for a in spec))
+
     def state_shardings(self, mesh, cell: Cell) -> Any:
-        dense = cell.name == "block_dense"
-        specs = (
-            sh.dualsim_dense_specs(mesh) if dense else sh.dualsim_sparse_specs(mesh)
-        )
-        batched = cell.name == "batch16_sparse"
+        return sh.map_with_path(
+            lambda path, leaf: sh.named(mesh, leaf.shape,
+                                        self.spec_for(path.split("/")[0], cell, mesh)),
+            self.abstract_state(cell))
 
-        def one(path, leaf):
-            key = path.split("/")[0]
-            spec = specs.get(key, P())
-            if key == "init" and batched:
-                spec = P("data", "model")  # query-parallel over 'data'
-            if key in ("edge_src_b", "edge_dst_b"):
-                spec = P(("data", "model"), None)  # block dim = chi shards
-            return sh.named(mesh, leaf.shape, spec)
-
-        return sh.map_with_path(one, self.abstract_state(cell))
+    def place(self, ops: dualsim.Operands, cell: Cell, mesh, *,
+              blocked: bool | None = None) -> dualsim.Operands:
+        """Real operands (built on the CPU) placed on ``mesh`` by
+        :meth:`spec_for` (:func:`repro_torch.core.dualsim.shard_operands`;
+        on a mesh of cards, or with ``blocked``, the edges in the blocked
+        layout a shard)."""
+        return dualsim.shard_operands(ops, mesh, lambda f: self.spec_for(f, cell, mesh),
+                                      blocked=blocked)
 
     def input_shardings(self, mesh, cell: Cell) -> Any:
         return {}

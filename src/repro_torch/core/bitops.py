@@ -51,9 +51,17 @@ def pack(bits: torch.Tensor) -> torch.Tensor:
 
 
 def unpack(packed: torch.Tensor, n: int) -> torch.Tensor:
-    """Inverse of :func:`pack`: ``packed[..., w] -> bool[..., n]``."""
-    shifts = torch.arange(WORD, dtype=torch.int32, device=packed.device)
-    bits = torch.bitwise_right_shift(packed[..., None], shifts) & 1
+    """Inverse of :func:`pack`: ``packed[..., w] -> bool[..., n]``.
+
+    Unpacks the words' bytes, so every intermediate is one byte an
+    element.  Assumes a little-endian device (byte k of a word holds bits
+    ``8k..8k+7``), as :func:`pack_np` assumes of the host.
+    """
+    if packed.dtype != torch.int32:
+        raise ValueError(f"packed words are int32, not {packed.dtype}")
+    b = packed.contiguous().view(torch.uint8)  # [..., 4 w]
+    shifts = torch.arange(8, dtype=torch.uint8, device=packed.device)
+    bits = torch.bitwise_right_shift(b[..., None], shifts) & 1
     bits = bits.reshape(packed.shape[:-1] + (packed.shape[-1] * WORD,))
     return bits[..., :n].to(torch.bool)
 

@@ -39,6 +39,9 @@ through plain torch ops; CPU operands in the blocked layout (handed over
 by :func:`repro_torch.convert.operands_from_numpy`, or built by the tests)
 run the wrapper's plain version.  The packed tier's kernels likewise run
 their plain versions on CPU operands and launch on card operands.
+DTensor operands (:func:`shard_operands`) run the sharded sweeps of the
+``sparse`` and partitioned engines, under the same rule a shard: on a card
+each shard holds its edges in the blocked layout.
 
 All engines implement the same monotone operator
 
@@ -56,9 +59,10 @@ from typing import Callable
 
 import numpy as np
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.distributed import ctx
+from repro_torch.distributed import shard as sh
 from repro_torch.kernels.bitmm import kernel as bitmm_kernel
 from repro_torch.kernels.segsum import kernel as segsum_kernel
 from repro_torch.kernels.segsum import ref as segsum_ref
@@ -142,7 +146,8 @@ class Operands:
     nw]`` (``packed``, ``packed_fused``), the flat per-operator edge lists
     (plain torch, CPU only) or the blocked segmented-OR layout
     (``segor_blocks``).  A card takes every layout but the flat lists, so
-    the card never runs a plain version.
+    the card never runs a plain version.  Any of them may be DTensors, the
+    operands of a sharded sweep (:func:`shard_operands`).
     """
 
     init: torch.Tensor  # bool [V, n]
@@ -166,7 +171,9 @@ class Operands:
     edge_src_b: tuple | None = None  # per-mat int32 [W, Eb] source nodes
     edge_dst_b: tuple | None = None  # per-mat int32 [W, Eb] local dst (pad = n_local)
     # the same blocks in the blocked segmented-OR layout over local dst ids:
-    # per mat, per block a (seg_src_b [G, BE], seg_dst_b [G, BE], seg_win [G])
+    # per mat, per block a (seg_src_b [G, BE], seg_dst_b [G, BE], seg_win [G]);
+    # as DTensors, per mat one such triple stacked over the blocks, [W, G,
+    # BE], [W, G, BE] and [W, G], split along W (shard_operands)
     part_seg: tuple | None = None
 
     def __post_init__(self):
@@ -201,7 +208,8 @@ class Operands:
         """Destination blocks of the partitioned layout (``None`` for any
         other layout, or when there is no operator to read it from)."""
         if self.part_seg:
-            return len(self.part_seg[0])
+            first = self.part_seg[0]  # a triple a block, or stacked DTensors
+            return int(first[0].shape[0]) if isinstance(first[0], DTensor) else len(first)
         if self.edge_src_b:
             return int(self.edge_src_b[0].shape[0])
         return None
@@ -526,6 +534,85 @@ def make_partitioned_operands(
 
 
 # --------------------------------------------------------------------- #
+# the operands of a sharded sweep
+# --------------------------------------------------------------------- #
+def shard_operands(ops: Operands, mesh, spec_of: Callable, *,
+                   blocked: bool | None = None) -> Operands:
+    """``ops`` (plain tensors, with flat edges or dense / packed adjacency)
+    placed on ``mesh`` as DTensors, the operands of a sharded sweep: each
+    tensor field ``f`` split as ``spec_of(f)`` says (a
+    :class:`~repro_torch.distributed.shard.P`).
+
+    With ``blocked`` (by default on a mesh of cards, which runs no flat
+    edge list) the flat edges first become the blocked segmented-OR layout
+    a shard, built on the host, so that each device's reduce is one
+    ``segor_blocks`` call:
+
+    * the ``sparse`` lists: chi's words are split as ``init`` is
+      (``spec_of("init")`` is the sweep's ``chi_spec``), and each edge
+      shard (:func:`_edge_placements`) takes a contiguous run of every
+      operator's edges in K1's layout (:func:`_segor_mat`), padded to one
+      block count ``G``: ``seg_src_b`` ``[S * G, BE]``, split as the edges;
+    * the partitioned blocks: each block's K1 layout over its local
+      destinations, padded to one ``G`` and stacked, ``part_seg`` ``[W, G,
+      BE]`` per operator, split as ``spec_of("edge_src_b")`` splits the
+      blocks.
+    """
+    from torch.distributed.tensor import distribute_tensor
+
+    if ops.blocked or ops.part_seg is not None:
+        raise ValueError("shard_operands takes flat edges (operands built on the CPU)")
+    if blocked is None:
+        blocked = mesh.device_type == "cuda"
+
+    def put(t, spec):
+        return distribute_tensor(t, mesh, sh.named(mesh, t.shape, spec).placements)
+
+    fields = {}
+    if blocked and ops.edge_src is not None:
+        epl = _edge_placements(_sparse_chi(ops, mesh, spec_of("init")).placements)
+        n_shards = int(np.prod([mesh.size(k) for k, p in enumerate(epl) if p == Shard(0)]))
+        n = ops.init.shape[-1]
+        cols = []
+        for src, dst in zip(ops.edge_src, ops.edge_dst):
+            live = dst < n  # the flat lists' pad rows
+            runs = zip(*(np.array_split(x[live].numpy(), n_shards) for x in (src, dst)))
+            cols.append(tuple(distribute_tensor(t.flatten(0, 1), mesh, epl)
+                              for t in _common_segor(runs, n)))
+        fields.update(dict(zip(("seg_src_b", "seg_dst_b", "seg_win"), zip(*cols))),
+                      edge_src=None, edge_dst=None)
+    elif blocked and ops.edge_src_b is not None:
+        n_local = ops.init.shape[-1] // ops.n_blocks
+        spec = spec_of("edge_src_b")
+        col = []
+        for src_b, dst_b in zip(ops.edge_src_b, ops.edge_dst_b):
+            live = dst_b < n_local  # the flat blocks' pad rows
+            runs = [(s[k].numpy(), d[k].numpy()) for s, d, k in zip(src_b, dst_b, live)]
+            col.append(tuple(put(t, spec) for t in _common_segor(runs, n_local)))
+        fields.update(part_seg=tuple(col), edge_src_b=None, edge_dst_b=None)
+    for f in dataclasses.fields(ops):
+        val = getattr(ops, f.name)
+        if f.name in fields or val is None:
+            continue
+        spec = spec_of(f.name)
+        fields[f.name] = (tuple(put(t, spec) for t in val) if isinstance(val, tuple)
+                          else put(val, spec))
+    return dataclasses.replace(ops, **fields)
+
+
+def _common_segor(runs, n: int) -> tuple[torch.Tensor, ...]:
+    """K1's layout (:func:`_segor_mat`) of each ``(src, dst)`` run of raw
+    edges over ``n`` destinations, padded to one block count ``G`` and
+    stacked: ``[K, G, BE]``, ``[K, G, BE]``, ``[K, G]`` on the CPU."""
+    runs = list(runs)
+    mats = [_segor_mat(s, t, n, "cpu") for s, t in runs]
+    g = max(m[0].shape[0] for m in mats)
+    mats = [m if m[0].shape[0] == g else _segor_mat(s, t, n, "cpu", min_g=g)
+            for m, (s, t) in zip(mats, runs)]
+    return tuple(torch.stack(x) for x in zip(*mats))
+
+
+# --------------------------------------------------------------------- #
 # incremental maintenance: operand patching + destabilization closure
 # --------------------------------------------------------------------- #
 def patch_operands(
@@ -645,6 +732,59 @@ def _and_rows(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _and_of_rows(x: torch.Tensor, rhs: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``AND_k x[rhs[table[l, k]]]`` for every row ``l`` of ``table``, on
+    packed words ``[V, nw]``; an entry equal to ``len(rhs)`` points at an
+    appended all-ones row (AND's identity, pad bits included).  On a
+    DTensor: :func:`_sharded_and_of_rows`."""
+    if isinstance(x, DTensor):
+        return _sharded_and_of_rows(x, rhs, table)
+    return _and_of_table(x[rhs], table)
+
+
+def _and_of_table(rows: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``AND_k rows[table[l, k]]`` per row ``l`` of ``table``, the entry
+    ``len(rows)`` the appended all-ones row."""
+    nw = rows.shape[-1]
+    vals = torch.cat([
+        rows,
+        torch.full((1, nw), _ALL_ONES, dtype=rows.dtype, device=rows.device),
+    ])
+    return _and_rows(vals[table])
+
+
+def _sharded_and_of_rows(x: DTensor, rhs, table) -> DTensor:
+    """:func:`_and_of_rows` of a DTensor ``x`` (chi's words, or y's), in
+    ``x``'s placements, with no gather of ``x``.  Where its rows (the query
+    variables) are sharded, the rows ``rhs`` names are taken as a masked
+    partial sum (each row lives on one shard, zeros elsewhere) all-reduced
+    over those mesh dims: ``[len(rhs), words]``, not ``x`` whole.  Each
+    device then ANDs the rows of its own variables; words stay where they
+    are."""
+    mesh = x.device_mesh
+    pl = tuple(x.placements)
+    row_axes = tuple(mesh.mesh_dim_names[k] for k, p in enumerate(pl) if p == Shard(0))
+    rank, n_row = ctx.shard_index(mesh, row_axes or None)
+    if x.shape[0] % n_row:
+        raise ValueError(f"{n_row} row shards do not divide {x.shape[0]} rows")
+    vl = x.shape[0] // n_row
+    lo = rank * vl
+    rows = [Replicate() if p == Shard(0) else p for p in pl]
+    summed = [Partial("sum") if p == Shard(0) else p for p in pl]
+    rep = [Replicate()] * mesh.ndim
+
+    def take(xl, r):
+        j = r.to(torch.int64) - lo
+        ok = (j >= 0) & (j < vl)
+        return torch.where(ok[:, None], xl[torch.where(ok, j, 0)], 0)
+
+    def mine(y_rhs, t):
+        return _and_of_table(y_rhs, t[lo:lo + vl])
+
+    got = ctx.local_map(take, summed, (pl, rep), mesh)(x, rhs).redistribute(mesh, rows)
+    return ctx.local_map(mine, list(pl), (rows, rep), mesh)(got, table)
+
+
 def _apply_copies_packed(chi_p: torch.Tensor, ops: Operands) -> torch.Tensor:
     """Copy inequalities on bit-packed chi: word-wise gathers and ANDs.
 
@@ -654,12 +794,7 @@ def _apply_copies_packed(chi_p: torch.Tensor, ops: Operands) -> torch.Tensor:
     """
     if ops.copy_rhs.shape[0] == 0:
         return chi_p
-    nw = chi_p.shape[-1]
-    cvals = torch.cat([
-        chi_p[ops.copy_rhs],
-        torch.full((1, nw), _ALL_ONES, dtype=chi_p.dtype, device=chi_p.device),
-    ])
-    return torch.bitwise_and(chi_p, _and_rows(cvals[ops.var_copy]))
+    return torch.bitwise_and(chi_p, _and_of_rows(chi_p, ops.copy_rhs, ops.var_copy))
 
 
 def _per_var_mask_packed(y_p: torch.Tensor, m: int, ops: Operands) -> torch.Tensor:
@@ -669,18 +804,15 @@ def _per_var_mask_packed(y_p: torch.Tensor, m: int, ops: Operands) -> torch.Tens
     padded table entry points at an appended all-ones row); chi's pad bits
     are already zero, so no pad bit can turn on.
     """
-    nw = y_p.shape[-1]
-    vals = torch.cat([
-        y_p[ops.mat_rhs[m]],
-        torch.full((1, nw), _ALL_ONES, dtype=y_p.dtype, device=y_p.device),
-    ])
-    return _and_rows(vals[ops.mat_table[m]])
+    return _and_of_rows(y_p, ops.mat_rhs[m], ops.mat_table[m])
 
 
 def _moved(new, old) -> bool:
     """Whether any word of chi moved: one read to the host.  chi is a
     tensor, or a tuple of column shards on their devices, whose flags
     gather onto the first shard's device before the read."""
+    if isinstance(new, DTensor):
+        return bool(torch.any(new != old).full_tensor())
     if isinstance(new, torch.Tensor):
         return bool(torch.any(new != old))
     flags = [torch.any(a != b) for a, b in zip(new, old)]
@@ -736,6 +868,7 @@ def _packed_edge_fixpoint(
     *,
     jacobi: bool = True,
     shards: list | None = None,
+    sharded: "_ShardedChi | None" = None,
 ) -> tuple[torch.Tensor, int]:
     """Shared driver of the packed-state edge-list engines.
 
@@ -753,6 +886,10 @@ def _packed_edge_fixpoint(
     the shard's ``y`` words.  The one cross-device copy of a sweep is the
     frontier, replicated whole onto every shard's device
     (:func:`_replicated_frontier`).
+
+    ``sharded`` holds chi's words as a DTensor (:class:`_ShardedChi`): the
+    sweep starts from its placed words, a Jacobi sweep gathers one frontier
+    that every operator reads, and the fixpoint is unpacked from it.
     """
     n = ops.init.shape[-1]
     n_mats = len(ops.mat_rhs)
@@ -790,10 +927,13 @@ def _packed_edge_fixpoint(
         chi_p = torch.cat([p.to(home) for p in parts], dim=1)
         return bitops.unpack(chi_p, n), it
 
+    if sharded is not None and chi0 is not None:
+        raise NotImplementedError("a sharded sweep starts from the init alone")
     if jacobi:
 
         def sweep(chi_p: torch.Tensor) -> torch.Tensor:
-            return jacobi_step(chi_p, chi_p, propagate, ops)
+            frontier = chi_p if sharded is None else sharded.frontier(chi_p)
+            return jacobi_step(chi_p, frontier, propagate, ops)
 
     else:
 
@@ -803,41 +943,218 @@ def _packed_edge_fixpoint(
                 chi_p = torch.bitwise_and(chi_p, _per_var_mask_packed(y_p, m, ops))
             return _apply_copies_packed(chi_p, ops)
 
+    if sharded is not None:
+        chi_p, it = _sweep_fixpoint(sweep, sharded.start(ops.init), max_sweeps)
+        return sharded.unpack(chi_p, n), it
     chi_p, it = _sweep_fixpoint(sweep, _packed_start(ops, chi0), max_sweeps)
     return bitops.unpack(chi_p, n), it
 
 
+@dataclasses.dataclass(frozen=True)
+class _ShardedChi:
+    """chi's packed words as a DTensor through a sharded sweep.
+
+    ``placements`` on ``mesh``: the rows (query variables) ``Shard(0)`` on
+    some mesh dims, the words ``Shard(1)`` on others; the words are padded
+    with zero words to ``n_words`` so that every shard is even.
+    ``frontier_placements`` are those of the copy a segmented OR reads: the
+    words gathered on every mesh dim (the rows stay split).
+    """
+
+    mesh: object
+    placements: tuple
+    n_words: int
+    frontier_placements: tuple
+
+    def _aligned(self, n: int) -> bool:
+        """Whether ``n`` bool columns split as the words are: each shard's
+        columns are exactly the bits of its words."""
+        return n == self.n_words * bitops.WORD
+
+    def start(self, init: torch.Tensor) -> DTensor:
+        """The packed words of ``init`` (bool ``[V, n]``), placed: each
+        device packs only the words it holds (from its own columns where
+        they split as the words do, else from its rows' columns)."""
+        axes = tuple(self.mesh.mesh_dim_names[k]
+                     for k, p in enumerate(self.placements) if p == Shard(1))
+        k, n_c = ctx.shard_index(self.mesh, axes or None)
+        nwl = self.n_words // n_c
+        aligned = self._aligned(init.shape[-1])
+
+        def local(bits):
+            if not aligned:
+                bits = bits[:, k * nwl * bitops.WORD:(k + 1) * nwl * bitops.WORD]
+            part = bitops.pack(bits)
+            return torch.nn.functional.pad(part, (0, nwl - part.shape[1]))
+
+        rows = self.placements if aligned else self.frontier_placements
+        return ctx.local_map(local, list(self.placements), (rows,), self.mesh)(
+            ctx.as_dtensor(init, self.mesh))
+
+    def frontier(self, chi_p: DTensor) -> DTensor:
+        """The copy of chi's words a segmented OR reads: one all-gather of
+        the words."""
+        return chi_p.redistribute(self.mesh, self.frontier_placements)
+
+    def unpack(self, chi_p: DTensor, n: int) -> DTensor:
+        """Bool chi ``[V, n]``, unpacked on each device a byte an
+        intermediate element: split as the words are where the columns
+        align with them, else with the words gathered first (its rows
+        split as chi's)."""
+        aligned = self._aligned(n)
+        rows = self.placements if aligned else self.frontier_placements
+
+        def local(w):
+            return bitops.unpack(w, w.shape[1] * bitops.WORD if aligned else n)
+
+        return ctx.local_map(local, list(rows), (rows,), self.mesh)(chi_p)
+
+
+def _present(axes, mesh) -> tuple[str, ...]:
+    """The mesh axes among ``axes`` (a name, a tuple of names or None)
+    that ``mesh`` has."""
+    names = mesh.mesh_dim_names
+    group = () if axes is None else (axes,) if isinstance(axes, str) else tuple(axes)
+    return tuple(a for a in group if a in names)
+
+
+def _sparse_chi(ops: Operands, mesh, chi_spec) -> _ShardedChi:
+    """chi's layout for a sharded ``sparse`` sweep: ``chi_spec``, a
+    :class:`~repro_torch.distributed.shard.P` over chi's ``(rows, words)``
+    (the reference's ``chi_spec``; axes the mesh lacks are dropped, and row
+    axes that do not divide the rows)."""
+    if chi_spec is None:
+        raise ValueError("a sparse sweep over DTensor operands needs chi_spec")
+    v, n = ops.init.shape
+    rows = sh.safe_spec((v,), sh.P(_present(chi_spec[0], mesh) or None), mesh)[0]
+    words = _present(chi_spec[1], mesh) if len(chi_spec) > 1 else ()
+    placements = sh.to_placements(sh.P(rows, words or None), mesh)
+    n_c = sh.axis_size(mesh, words)
+    n_words = -(-bitops.packed_width(n) // n_c) * n_c
+    return _ShardedChi(mesh, placements, n_words,
+                       tuple(Shard(0) if p == Shard(0) else Replicate() for p in placements))
+
+
+def _edge_placements(chi_placements) -> list:
+    """The placements of a sharded sweep's edges, flat or blocked:
+    ``Shard(0)`` on the mesh dims that split chi's words, replicated on the
+    rest (those that split chi's rows, and those chi is replicated on), so
+    each group of devices that shares chi's rows holds every edge once."""
+    return [Shard(0) if p == Shard(1) else Replicate() for p in chi_placements]
+
+
+def _segor_sharded(frontier_p: DTensor, edges: tuple, lanes_of: Callable) -> DTensor:
+    """The segmented OR of one operator on DTensors: chi's words in
+    ``frontier_p``'s placements.
+
+    ``frontier_p`` holds chi's words ``[V, nw]`` in chi's placements: the
+    rows (the query variables) ``Shard(0)`` on some mesh dims, the words
+    ``Shard(1)`` on others.  ``edges`` are laid out by
+    :func:`_edge_placements`.  Each device gathers the words of its own rows
+    (an all-gather over the word dims) and ``lanes_of(words, *edges)``
+    reduces its edges into ``uint8 [nw, 32, V_local]`` lanes over every node
+    of its own variables, one byte an element; the partials are
+    max-reduced and scattered so that each device keeps the words it owns
+    (a reduce-scatter over the word dims), which it packs."""
+    mesh = frontier_p.device_mesh
+    cpl = tuple(frontier_p.placements)
+    rows = [Shard(0) if p == Shard(0) else Replicate() for p in cpl]
+    lanes = [Shard(0) if p == Shard(1) else Shard(2) if p == Shard(0) else Replicate()
+             for p in cpl]
+    partial = [Partial("max") if p == Shard(1) else q for p, q in zip(cpl, lanes)]
+    epl = _edge_placements(cpl)
+    y = ctx.local_map(lanes_of, partial, (rows, *(epl,) * len(edges)), mesh)(
+        frontier_p, *edges)
+    y = y.redistribute(mesh, lanes)
+    return ctx.local_map(segsum_ref.pack_lanes, list(cpl), (lanes,), mesh)(y)
+
+
+def _blocked_lanes(n: int) -> Callable:
+    """A device's lanes (:func:`_segor_sharded`) from its edges in the
+    blocked layout: one :func:`repro_torch.kernels.segsum.kernel.segor_blocks`
+    call (on a card, the CUDA kernel), its words unpacked a byte a bit."""
+
+    def lanes_of(f, src_b, dst_b, win):
+        v, nw = f.shape
+        words = segsum_kernel.segor_blocks(f.contiguous(), src_b, dst_b, win,
+                                           num_segments=n, num_sources=nw * bitops.WORD)
+        words = torch.nn.functional.pad(words, (0, nw - words.shape[1]))
+        bits = bitops.unpack(words, nw * bitops.WORD).T.contiguous()
+        return bits.view(torch.uint8).view(nw, bitops.WORD, v)
+
+    return lanes_of
+
+
+def _flat_lanes(n: int) -> Callable:
+    """A device's lanes (:func:`_segor_sharded`) from its flat edge lists,
+    in plain torch (the CPU's)."""
+
+    def lanes_of(f, src, dst):
+        return segsum_ref.segor_lanes(_edge_bits(f, src), dst, n, f.shape[1])
+
+    return lanes_of
+
+
 def solve_sparse(
     ops: Operands, *, max_sweeps: int | None = None,
-    mode: str = "gs", chi0: torch.Tensor | None = None,
+    mode: str = "gs", chi0: torch.Tensor | None = None, chi_spec=None,
 ) -> tuple[torch.Tensor, int]:
     """Edge-list engine: segmented-OR message passing over bit-packed chi.
 
-    Runs on the device the operands live on.  ``mode`` is ``"gs"``
-    (operators applied sequentially, the paper's ordering) or
-    ``"jacobi_packed"`` (one frontier per sweep); both reach the same
+    ``mode="gs"`` (Gauss–Seidel, the paper's SOI order) or
+    ``"jacobi_packed"`` (all operators read one frontier a sweep).  The two
+    take different sweep counts to the same (unique) greatest
     fixpoint.  The blocked layout runs through ``segor_blocks`` (on a card,
     always: the CUDA kernel), the flat edge lists through plain torch ops
     on the CPU.  Returns (bool chi ``[V, n]``, sweeps).
+
+    DTensor operands (:func:`shard_operands`) run the sharded sweep:
+    chi's words are split as ``chi_spec`` says (:func:`_sparse_chi`; it is
+    required there), flat edges are laid out once a solve by
+    :func:`_edge_placements` (blocked ones must already be), and each
+    operator is :func:`_segor_sharded`, whose device-local reduce is the
+    same ``segor_blocks`` call or plain reduce.  The result is a DTensor
+    whose rows are split as chi's.
     """
     n = ops.init.shape[-1]
     if ops.edge_src is None and not ops.blocked:
         raise ValueError("solve_sparse needs an edge layout")
     if mode not in ("gs", "jacobi_packed"):
         raise ValueError(f"unknown sparse mode {mode!r}")
+    edges = (tuple(zip(ops.seg_src_b, ops.seg_dst_b, ops.seg_win)) if ops.blocked
+             else tuple(zip(ops.edge_src, ops.edge_dst)))
+    mesh = _mesh_of(ops.init, *(e[0] for e in edges))
+    sharded = None if mesh is None else _sparse_chi(ops, mesh, chi_spec)
+    if sharded is not None:
+        epl = _edge_placements(sharded.placements)
+        if ops.blocked:
+            if any(list(t.placements) != epl for e in edges for t in e):
+                raise ValueError(f"blocked edges must be placed {epl} for chi's "
+                                 f"{sharded.placements} (shard_operands)")
+        else:
+            edges = tuple(tuple(ctx.as_dtensor(t, mesh).redistribute(mesh, epl) for t in e)
+                          for e in edges)
+        lanes_of = _blocked_lanes(n) if ops.blocked else _flat_lanes(n)
 
     def propagate(frontier_p: torch.Tensor, m: int) -> torch.Tensor:
+        if sharded is not None:
+            return _segor_sharded(frontier_p, edges[m], lanes_of)
         if ops.blocked:
-            return segsum_kernel.segor_blocks(
-                frontier_p, ops.seg_src_b[m], ops.seg_dst_b[m], ops.seg_win[m],
-                num_segments=n,
-            )
+            return segsum_kernel.segor_blocks(frontier_p, *edges[m], num_segments=n)
         msgs = _edge_bits(frontier_p, ops.edge_src[m])  # int32 [V, E_m]
         return segsum_ref.segor_words(msgs, ops.edge_dst[m], n)
 
     return _packed_edge_fixpoint(
-        propagate, ops, max_sweeps, chi0, jacobi=(mode != "gs")
+        propagate, ops, max_sweeps, chi0, jacobi=(mode != "gs"), sharded=sharded
     )
+
+
+def _mesh_of(*tensors):
+    """The device mesh of the first DTensor among ``tensors``, else None."""
+    for t in tensors:
+        if isinstance(t, DTensor):
+            return t.device_mesh
+    return None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -890,22 +1207,43 @@ def _column_shards(n_blocks: int, nlw: int, mesh) -> list:
     return shards
 
 
-def _sharded_block_words(frontier_p, src_b, dst_b, n_local: int):
-    """The packed words of every destination block, on DTensor blocks
-    ``[W, Eb]`` sharded along W: each shard reduces its own blocks against
-    the whole frontier (replicated first: the sweep's one broadcast of the
-    packed words) and holds their words, block-major, as its columns of
-    ``[V, W * n_local / 32]``."""
-    mesh = src_b.device_mesh
-    bpl = tuple(src_b.placements)
+def _sharded_block_words(frontier_p, blocks: tuple, n_local: int, n: int):
+    """The packed words of every destination block, on DTensor blocks split
+    along their first dim W: each shard reduces its own blocks against the
+    whole frontier (``frontier_p``, replicated once a sweep by the caller
+    and read by every operator) and holds their words, block-major, as its
+    columns of ``[V, W * n_local / 32]``.  ``blocks`` is one operator's
+    blocked triple (``part_seg``'s stacked form; a ``segor_blocks`` call a
+    block, on a card the CUDA kernel) or its flat pair ``[W, Eb]`` (the
+    CPU's, a plain reduce a block)."""
+    mesh = blocks[0].device_mesh
+    bpl = tuple(blocks[0].placements)
     opl = [Shard(1) if isinstance(pl, Shard) else Replicate() for pl in bpl]
 
-    def local(f, src, dst):
-        return torch.cat([segsum_ref.segor_words(_edge_bits(f, src[i]), dst[i], n_local)
-                          for i in range(src.shape[0])], dim=1)
+    def local(f, *b):
+        if len(b) == 3:
+            f = f.contiguous()
+            words = [segsum_kernel.segor_blocks(f, b[0][i], b[1][i], b[2][i],
+                                                num_segments=n_local, num_sources=n)
+                     for i in range(b[0].shape[0])]
+        else:
+            words = [segsum_ref.segor_words(_edge_bits(f, b[0][i]), b[1][i], n_local)
+                     for i in range(b[0].shape[0])]
+        return torch.cat(words, dim=1)
 
-    return ctx.local_map(local, opl, ((Replicate(),) * mesh.ndim, bpl, bpl), mesh)(
-        frontier_p, src_b, dst_b)
+    rep = (Replicate(),) * mesh.ndim
+    return ctx.local_map(local, opl, (rep, *(bpl,) * len(blocks)), mesh)(frontier_p, *blocks)
+
+
+def _partitioned_chi(ops: Operands, blocks: tuple) -> _ShardedChi:
+    """chi's layout for a partitioned sweep over DTensor blocks (``blocks``
+    one operator's): the words split as the blocks are (block w's words
+    where block w lives), the frontier replicated whole."""
+    mesh = blocks[0].device_mesh
+    placements = tuple(Shard(1) if isinstance(p, Shard) else Replicate()
+                       for p in blocks[0].placements)
+    return _ShardedChi(mesh, placements, ops.init.shape[-1] // bitops.WORD,
+                       (Replicate(),) * mesh.ndim)
 
 
 def solve_partitioned(
@@ -932,6 +1270,11 @@ def solve_partitioned(
     replicating the packed chi words, plus the host's one convergence
     read.  Same fixpoint as the other engines.  Returns (bool chi ``[V,
     n_pad]``, sweeps).
+
+    DTensor blocks (:func:`shard_operands`; flat on the CPU, the stacked
+    blocked triple on a card) run the sharded sweep: chi's words split as
+    the blocks are, one copy of the frontier a sweep that every operator
+    reads (:func:`_sharded_block_words`).
     """
     if not ops.partitioned:
         raise ValueError("solve_partitioned needs partitioned operands "
@@ -956,16 +1299,21 @@ def solve_partitioned(
         # pad rows (dst = n_local) dropped by the segment reduce
         return segsum_ref.segor_words(msgs, ops.edge_dst_b[m][b], n_local)
 
+    # per operator: the flat pair, or the blocked triple(s)
+    per_mat = (tuple(zip(ops.edge_src_b, ops.edge_dst_b)) if ops.part_seg is None
+               else ops.part_seg)
+    sharded = (_partitioned_chi(ops, per_mat[0])
+               if per_mat and isinstance(per_mat[0][0], DTensor) else None)
+
     def propagate_blocks(frontier_p: torch.Tensor, m: int, blocks) -> torch.Tensor:
-        if isinstance(ops.edge_src_b[m] if ops.edge_src_b else None, DTensor):
-            return _sharded_block_words(frontier_p, ops.edge_src_b[m], ops.edge_dst_b[m],
-                                        n_local)
+        if sharded is not None:
+            return _sharded_block_words(frontier_p, per_mat[m], n_local, n)
         return torch.cat([block_words(frontier_p, m, b) for b in blocks], dim=1)
 
     if mesh is None or not w:
         return _packed_edge_fixpoint(
             lambda f, m: propagate_blocks(f, m, range(w)), ops, max_sweeps,
-            chi0, jacobi=True,
+            chi0, jacobi=True, sharded=sharded,
         )
     return _packed_edge_fixpoint(
         propagate_blocks, ops, max_sweeps, chi0, jacobi=True,

@@ -125,10 +125,12 @@ def logical_axis_rules(mesh, rules: dict[str, tuple[str, ...]] | None = None):
 
 
 def _axes_for(mesh, rules, name: str, dim: int) -> tuple[str, ...]:
-    """The rule's mesh axes for logical axis ``name`` that the mesh has,
-    shortened from the front until their product divides ``dim``."""
+    """The rule's mesh axes for logical axis ``name`` that the mesh has
+    (of more than one device: a split over one device splits nothing, and
+    DTensor refuses to reshape a dim sharded over it), shortened from the
+    front until their product divides ``dim``."""
     shape = sh.mesh_shape(mesh)
-    axes = tuple(a for a in rules.get(name, ()) if a in shape)
+    axes = tuple(a for a in rules.get(name, ()) if shape.get(a, 1) > 1)
     while axes:
         size = sh.axis_size(mesh, axes)
         if size and dim % size == 0:
@@ -201,15 +203,31 @@ def as_dtensor(x: torch.Tensor, mesh) -> DTensor:
     return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
 
 
-def local_map(fn, out_placements, in_placements, mesh):
+def local_map(fn, out_placements, in_placements, mesh, in_grad_placements=None):
     """``fn`` over the local shards of DTensor arguments, each first
     redistributed to its ``in_placements`` (a DTensor collective where they
     differ); ``out_placements`` is a list of placements for one output, a
-    tuple of such lists for several."""
+    tuple of such lists for several.  ``in_grad_placements`` (one entry an
+    argument, None for the default) are those of each argument's local
+    gradient: by default its ``in_placements``, which is wrong where an
+    argument is replicated on a mesh dim while the shards compute
+    different things with it (another argument sharded there, or a slice
+    of it taken a shard): there its gradient is ``Partial()``."""
     from torch.distributed.tensor.experimental import local_map as _local_map
 
+    if in_grad_placements is not None:
+        in_grad_placements = tuple(g if g is not None else p
+                                   for g, p in zip(in_grad_placements, in_placements))
     return _local_map(fn, out_placements=out_placements, in_placements=in_placements,
-                      device_mesh=mesh, redistribute_inputs=True)
+                      in_grad_placements=in_grad_placements, device_mesh=mesh,
+                      redistribute_inputs=True)
+
+
+def partial_where(placements, dims) -> tuple:
+    """``placements`` with ``Partial()`` on the mesh dims ``dims`` (the
+    gradient placements of an argument replicated there, see
+    :func:`local_map`)."""
+    return tuple(Partial() if k in dims else p for k, p in enumerate(placements))
 
 
 def shard_index(mesh, axes) -> tuple[int, int]:
@@ -236,7 +254,8 @@ def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     shard looks up the rows it owns and zeroes the rest, and the partial
     results are summed back onto the ids' own placements (a reduce-scatter
     where the ids were sharded, an all-reduce where they were replicated).
-    The backward of the masked lookup stays on the shard that owns the row.
+    The backward of the masked lookup stays on the shard that owns the row,
+    summed over the shards whose ids it served.
     """
     if not isinstance(table, DTensor) and not isinstance(ids, DTensor):
         return table[ids]
@@ -261,7 +280,11 @@ def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         got = t[torch.where(ok, j, torch.zeros_like(j))]
         return torch.where(ok[..., None], got, torch.zeros_like(got))
 
-    out = local_map(local, list(opl), (tpl, ipl), mesh)(table, ids)
+    # where the ids are split and the table is not, each shard's table
+    # gradient holds only its own ids' rows: a partial sum
+    tgrad = partial_where(tpl, {k for k, p in enumerate(ipl)
+                                if isinstance(p, Shard) and not isinstance(tpl[k], Shard)})
+    out = local_map(local, list(opl), (tpl, ipl), mesh, (tgrad, None))(table, ids)
     return out.redistribute(mesh, ids.placements)
 
 

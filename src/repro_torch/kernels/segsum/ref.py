@@ -3,7 +3,9 @@
 * :func:`edge_bits` — per-edge source bits gathered out of packed frontier
   words (the ``_edge_bits`` gather of the edge engines).
 * :func:`segor_words` — segmented OR over a flat edge list, packed: the
-  lowering of the flat ``edge_src`` / ``edge_dst`` layout.
+  lowering of the flat ``edge_src`` / ``edge_dst`` layout; its unpacked
+  ``uint8`` lanes (:func:`segor_lanes`) and their packing
+  (:func:`pack_lanes`).
 * :func:`segor_blocks_ref` — the same function as the CUDA kernel
   (``csrc/segor.cu``) over the blocked layout of ``prepare_segor``: what
   the kernel's wrapper runs for a tensor on the CPU, and what the kernel is
@@ -24,17 +26,50 @@ the ``torch.bitwise_*_shift`` functions, which DTensors compute (their
 from __future__ import annotations
 
 import torch
-from torch.distributed.tensor import DTensor
 
 from repro_torch.core import bitops
-from repro_torch.distributed import shard as sh
-from repro_torch.distributed.ctx import logical_spec, segment_reduce
 
 
 def edge_bits(frontier_p: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     """``int32 [V, *src.shape]``: bit ``src % 32`` of word ``src // 32``."""
     word = frontier_p[:, torch.bitwise_right_shift(src, 5)]
     return torch.bitwise_right_shift(word, src & 31) & 1
+
+
+def segor_lanes(
+    bits: torch.Tensor, seg_ids: torch.Tensor, num_segments: int,
+    n_words: int | None = None,
+) -> torch.Tensor:
+    """Segmented OR of 0/1 ``bits [V, E]`` over ``seg_ids [E]``, unpacked:
+    ``uint8 [nw, 32, V]``, lane ``l`` of word ``w`` the OR into row ``32 w +
+    l``, ``nw = n_words`` (at least ``ceil(num_segments / 32)``, the
+    default).  Ids ``>= num_segments`` (the pad rows of every edge layout)
+    are dropped: their bits are zeroed onto row 0, which cannot change an
+    OR; rows past ``num_segments`` stay zero, so packing the lanes leaves
+    trailing pad bits and pad words zero."""
+    v = bits.shape[0]
+    nw = bitops.packed_width(num_segments) if n_words is None else n_words
+    rows = seg_ids.to(torch.int64)
+    keep = rows < num_segments
+    vals = torch.where(keep[:, None], bits.T.to(torch.uint8), 0)
+    y = torch.zeros((nw * bitops.WORD, v), dtype=torch.uint8, device=bits.device)
+    y.scatter_reduce_(0, torch.where(keep, rows, 0)[:, None].expand(-1, v), vals,
+                      reduce="amax")
+    return y.view(nw, bitops.WORD, v)
+
+
+def pack_lanes(lanes: torch.Tensor) -> torch.Tensor:
+    """``uint8 [nw, 32, V]`` 0/1 lanes -> ``int32 [V, nw]`` words.
+
+    Each 32-row group is shifted into its lanes and folded: lanes 0..30 are
+    disjoint bits below 2**31, so their int32 sum is their OR; lane 31 (the
+    sign bit) is ORed in on its own.
+    """
+    lanes = lanes.to(torch.int32)
+    shifts = torch.arange(bitops.WORD - 1, dtype=torch.int32, device=lanes.device)
+    low = torch.bitwise_left_shift(lanes[:, :-1], shifts[:, None]).sum(1, dtype=torch.int32)
+    words = low | torch.bitwise_left_shift(lanes[:, -1], bitops.WORD - 1)  # [nw, V]
+    return words.T.contiguous()
 
 
 def segor_words(
@@ -46,33 +81,7 @@ def segor_words(
     (the pad rows of every edge layout) are dropped, and trailing pad bits
     stay zero.
     """
-    v = bits.shape[0]
-    nw = bitops.packed_width(num_segments)
-    n_pad = nw * bitops.WORD  # rows past num_segments stay zero: pad bits
-    rows = seg_ids.to(torch.int64)
-    if isinstance(bits, DTensor) or isinstance(seg_ids, DTensor):
-        # edge-sharded: each shard's partial max (a dropped edge's bits are
-        # zeroed onto row 0, which cannot change an OR), node-sharded
-        keep = rows < num_segments
-        vals = bits.T.to(torch.int32) * keep[:, None].to(torch.int32)
-        y = segment_reduce(vals, torch.where(keep, rows, 0), n_pad, "amax")
-        words = (logical_spec((nw,), "nodes") or sh.P(None))[0]  # whole words a shard
-        y = y.redistribute(y.device_mesh, sh.to_placements(sh.P(words, None), y.device_mesh))
-        y = torch.clamp(y, min=0)
-    else:
-        rows = torch.where(rows < num_segments, rows, n_pad)  # dropped row
-        y = torch.zeros((n_pad + 1, v), dtype=torch.int32, device=bits.device)
-        y.scatter_reduce_(
-            0, rows[:, None].expand(-1, v), bits.T.to(torch.int32), reduce="amax"
-        )
-    # shift each 32-row group into its lanes and fold: lanes 0..30 are
-    # disjoint bits below 2**31, so their int32 sum is their OR; lane 31
-    # (the sign bit) is ORed in on its own
-    lanes = y[:n_pad].view(nw, bitops.WORD, v)
-    shifts = torch.arange(bitops.WORD - 1, dtype=torch.int32, device=y.device)
-    low = torch.bitwise_left_shift(lanes[:, :-1], shifts[:, None]).sum(1, dtype=torch.int32)
-    words = low | torch.bitwise_left_shift(lanes[:, -1], bitops.WORD - 1)  # [nw, V]
-    return words.T.contiguous()
+    return pack_lanes(segor_lanes(bits, seg_ids, num_segments))
 
 
 def segor_blocks_ref(

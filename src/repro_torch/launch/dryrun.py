@@ -18,9 +18,12 @@ and one dispatch mode below DTensor sees every operation a device runs:
   operation's inputs read and outputs written (a gather's or a scatter's
   rows, not its whole table), with no fusion;
 * collective bytes are the output bytes of the functional collectives
-  (``_c10d_functional``) the DTensor redistributions issue (on the fake
-  CPU group DTensor runs an all-to-all as an all-gather and a chunk, so
-  one counts as an all-gather of the whole);
+  (``_c10d_functional``) the DTensor redistributions issue, as the JAX
+  package counts a collective's output shape.  On a CPU mesh DTensor runs
+  an all-to-all (``Shard(i)`` to ``Shard(j)`` on one mesh dim) as an
+  all-gather of the whole and a chunk; :func:`counted_alltoall` counts
+  each such call as one all-to-all of the local shard's bytes instead, and
+  the record says how often it ran (``alltoall_fallbacks``);
 * memory is the bytes of the state's and the inputs' shards, plus the
   peak of what the step allocates on top (outputs included).
 
@@ -34,6 +37,7 @@ existing results are skipped unless --force.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 import math
@@ -118,6 +122,7 @@ class Account(TorchDispatchMode):
         self.bytes = 0.0
         self.collectives: dict[str, float] = {}
         self.paused = 0
+        self.alltoall_fallbacks = 0
         self.live = 0
         self.peak = 0
         self._seen: weakref.WeakSet = weakref.WeakSet()
@@ -181,6 +186,39 @@ class Account(TorchDispatchMode):
             for t in outs:
                 self._track(t)
         return out
+
+
+@contextlib.contextmanager
+def counted_alltoall(account: Account):
+    """Count DTensor's all-to-all as one: while open, each call of torch's
+    ``shard_dim_alltoall`` that ``account`` would see is counted as one
+    ``all-to-all`` of its output (the local shard, the bytes a device
+    receives), its input read and its output written, and the CPU
+    fallback inside it (an all-gather of the whole, then a chunk) is not
+    counted.  The original function is restored on exit."""
+    from torch.distributed.tensor import _collective_utils, placement_types
+
+    original = _collective_utils.shard_dim_alltoall
+
+    def alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
+        if account.paused:
+            return original(input, gather_dim, shard_dim, mesh, mesh_dim)
+        with account.paused_block():
+            out = original(input, gather_dim, shard_dim, mesh, mesh_dim)
+        account.alltoall_fallbacks += 1
+        key = "all-to-all@0"
+        account.collectives[key] = account.collectives.get(key, 0.0) + _nbytes(out)
+        account.bytes += _nbytes(input) + _nbytes(out)
+        account._track(out)
+        return out
+
+    _collective_utils.shard_dim_alltoall = alltoall
+    placement_types.shard_dim_alltoall = alltoall
+    try:
+        yield
+    finally:
+        _collective_utils.shard_dim_alltoall = original
+        placement_types.shard_dim_alltoall = original
 
 
 def collective_bytes(account: Account, depth: int) -> dict[str, float]:
@@ -257,7 +295,8 @@ def run_cell(spec, cell, mesh, mesh_name: str) -> dict:
             account.own(t.to_local() if isinstance(t, DTensor) else t
                         for _, t in sh.leaves_with_path({"s": state, "i": inputs})
                         if isinstance(t, torch.Tensor))
-            with logical_axis_rules(mesh), implicit_replication(), account:
+            with (logical_axis_rules(mesh), implicit_replication(), counted_alltoall(account),
+                  account):
                 out = step(state, inputs)
             args = {id(t) for _, t in sh.leaves_with_path({"s": state, "i": inputs})}
             out_bytes = sum(_nbytes(t.to_local() if isinstance(t, DTensor) else t)
@@ -298,6 +337,7 @@ def run_cell(spec, cell, mesh, mesh_name: str) -> dict:
         hlo_bytes=bytes_acc,
         collective_bytes=coll_total,
         collectives=coll,
+        alltoall_fallbacks=account.alltoall_fallbacks,
         trip_factor=trip,
         per_chip=per_chip,
         roofline=terms,

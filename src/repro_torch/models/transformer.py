@@ -33,7 +33,7 @@ import types
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
@@ -365,8 +365,13 @@ def _attend(q, k, v, q_pos, k_pos, window):
         return gqa_attention(ql, kl, vl, qp, kp, window=window)
 
     q_pos, k_pos = ctx.as_dtensor(q_pos, mesh), ctx.as_dtensor(k_pos, mesh)
-    return ctx.local_map(local, list(qpl), (qpl, kpl, kpl, ppl, ppl), mesh)(
-        q, k, v, q_pos, k_pos)
+    # replicated key/value heads, sliced a shard: their gradient is a
+    # partial sum over the heads' dims
+    sliced = ({k for k, pl in enumerate(sh.to_placements(sh.P(heads), mesh))
+               if pl != Replicate()} if heads is not None and not kv_sharded else set())
+    kgrad = ctx.partial_where(kpl, sliced)
+    return ctx.local_map(local, list(qpl), (qpl, kpl, kpl, ppl, ppl), mesh,
+                         (None, kgrad, kgrad, None, None))(q, k, v, q_pos, k_pos)
 
 
 def attention(
@@ -523,8 +528,10 @@ def _moe_sharded(cfg: LMConfig, p, xg: DTensor, shape: tuple[int, int, int]):
     fixed-shape buffer (a dropped slot lands in one spare row that is cut
     off), and combines its experts' share of each token: the output is a
     partial sum across the split, and the aux loss's routed fractions and
-    mean probabilities are averages across the groups' shards."""
-    from torch.distributed.tensor import Partial, Replicate
+    mean probabilities are averages across the groups' shards.  Every
+    replicated argument's gradient is a partial sum across the shards that
+    use it differently."""
+    from torch.distributed.tensor import Partial
 
     m = cfg.moe
     e, fe = m.n_experts, m.d_expert
@@ -543,8 +550,22 @@ def _moe_sharded(cfg: LMConfig, p, xg: DTensor, shape: tuple[int, int, int]):
     rpl = sh.to_placements(sh.P(), mesh)
     split_dims = {i for i, pl in enumerate(sh.to_placements(sh.P(split), mesh))
                   if pl != Replicate()}
+    batch_dims = {k for k, pl in enumerate(xpl) if pl != Replicate()}
     ypl = [Partial() if k in split_dims else pl for k, pl in enumerate(xpl)]
-    apl = [Partial("avg") if pl != Replicate() else Replicate() for pl in xpl]
+    # the aux loss's terms average over the groups' shards and over the
+    # split (where every shard holds the same terms), each shard's share a
+    # partial sum of the mean divided by their count (a ``Partial("avg")``
+    # output's backward would hand every shard the whole gradient), so
+    # that every replicated argument's gradient is a partial sum over the
+    # dims where the shards differ: the tokens' over the split (each
+    # shard's experts), the router's over the split and the groups, the
+    # expert weights' over the groups
+    avg_dims = batch_dims | split_dims
+    n_avg = math.prod(mesh.size(k) for k in avg_dims)
+    apl = [Partial() if k in avg_dims else Replicate() for k in range(mesh.ndim)]
+    grads = (ctx.partial_where(xpl, split_dims), ctx.partial_where(rpl, batch_dims | split_dims),
+             ctx.partial_where(wg_pl, batch_dims), ctx.partial_where(wg_pl, batch_dims),
+             ctx.partial_where(wd_pl, batch_dims))
 
     def local(xl, router, wg, wu, wd):
         gl = xl.shape[0]
@@ -565,10 +586,10 @@ def _moe_sharded(cfg: LMConfig, p, xg: DTensor, shape: tuple[int, int, int]):
         yt = ye.new_zeros((gl, tl, d)).index_put((gi, disp.token), ye[gi, ek, pk] * w,
                                                  accumulate=True)
         frac = torch.sum(disp.counts, dim=0).to(torch.float32) / (gl * tl * m.top_k)
-        return yt, frac, torch.mean(probs, dim=(0, 1))
+        return yt, frac / n_avg, torch.mean(probs, dim=(0, 1)) / n_avg
 
     yt, frac, pmean = ctx.local_map(
-        local, (ypl, apl, apl), (xpl, rpl, wg_pl, wg_pl, wd_pl), mesh,
+        local, (ypl, apl, apl), (xpl, rpl, wg_pl, wg_pl, wd_pl), mesh, grads,
     )(xg, p.router, p.w_gate, p.w_up, p.w_down)
     yt = constrain(yt, "batch", None, None)
     return yt.reshape(shape), e * torch.sum(frac * pmean)

@@ -9,7 +9,8 @@ size below spawns one gloo group for this module
 directory, one thread a rank so that the suite's other workers keep their
 cores); every case of that world size runs in the group in turn, and rank 0
 hands the results back through a file.  Two ranks form a 1-D ``(data,)``
-mesh; four ranks the 2 x 2 ``(data, model)`` mesh.
+mesh (a ``(1, 2)`` ``(data, model)`` mesh for the LM and recsys cases,
+whose rules name both axes); four ranks the 2 x 2 ``(data, model)`` mesh.
 
 What is held, and at what tolerance:
 
@@ -28,9 +29,38 @@ What is held, and at what tolerance:
   multiplies the f32 rounding of a reordered segment sum by up to
   ``1 / (2 sqrt(1e-6))`` = 500 where a variance sits at its clamp: an f32
   element-wise bound would measure the summation order, not the sharding;
+* gatedgcn and schnet (with random positions) held as PNA and GAT are,
+  but for the step's gradient norm, which ``adamw.global_norm`` sums in
+  f32 in either dtype: within f32 rtol 1e-5 (an f64 gradient a few ulps
+  off rounds to another f32 value, and the norm moves by ~1e-7);
 * one ``sparse`` dual-simulation sweep of the ``q_sparse`` cell with the
   edges and chi's columns sharded: chi's packed words bit for bit equal to
-  the one-rank sweep's.
+  the one-rank sweep's;
+* one sweep of the ``q_partitioned`` cell over DTensor blocks: chi's words
+  bit for bit;
+* the same ``q_sparse`` and ``q_partitioned`` sweeps, and the
+  query-parallel batch below, with each shard's edges in the blocked layout
+  that ``DualsimArch.place`` builds for a card (run here through the
+  kernel wrapper's plain version): bit for bit, and a ``sparse`` sweep over
+  DTensor operands without ``chi_spec`` refused;
+* on the 2 x 2 mesh, a query-parallel ``sparse`` batch of two queries
+  (``batch16_sparse``'s ``chi_spec``: the query variables over ``data``,
+  which splits one query's variables across shards, the words over
+  ``model``, on a node count whose shards do not align with the words):
+  one sweep, and the whole fixpoint in both sweep orders, bit for bit and
+  in as many sweeps;
+* the dense LMs' (internlm2, and qwen3, whose shards slice one replicated
+  key/value head) and the MoE LM's ``reduced()`` train step (``_attend``,
+  ``_moe_sharded``) against the same step on the plain state under the
+  same rules (so the MoE blocks its tokens into the same groups): f32
+  loss and gradient norm within rtol 1e-5, every gradient within rtol
+  1e-4 (atol 1e-4 times its largest magnitude, for elements near zero, as
+  ``test_torch_lm.py`` holds them), and every rank's MoE dispatch (each slot's expert, token and
+  position, and each expert's count) equal exactly to the plain
+  dispatch of the groups that rank holds;
+* dcn-v2's train step with the embedding table's rows sharded, so that
+  ``ctx.lookup`` runs shard-local: loss and gradient norm rtol 1e-5,
+  gradients as the LM's.
 """
 from __future__ import annotations
 
@@ -44,6 +74,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.distributed.shard import P
+
 SEED = 0
 # the ROADMAP's example: edges split 2 / 2, segment 0 = {1, 3}, segment 1 = {5, 2}
 EXAMPLE = dict(vals=[1.0, 5.0, 3.0, 2.0], idx=[0, 1, 0, 1], n=2)
@@ -52,10 +84,21 @@ TIES = dict(vals=[4.0, 1.0, 4.0, 4.0], idx=[0, 1, 0, 0], n=2, weight=[2.0, 3.0])
 # segment 2 has no edge
 EMPTY = dict(vals=[1.0, 5.0, 3.0, 2.0], idx=[0, 1, 0, 1], n=3, weight=[1.0, 1.0, 1.0])
 GNN_ARCHS = ("pna", "gat-cora")
+MORE_GNN_ARCHS = ("gatedgcn", "schnet")
 # a node-classification cell cut to a few hundred nodes (padded to 512 by
 # GNNArch._shapes, so every mesh axis divides it)
 GNN_CELL = dict(n_nodes=300, n_edges=1500, d_feat=12, n_out=3, task="node_class", n_graphs=1)
 QUERY = "{ ?a p0 ?b . ?b p1 ?c . ?c p0 ?d }"
+# a query-parallel batch: 3 + 5 variables, so the 2-way row split cuts the
+# second query's variables across shards
+BATCH_QUERIES = ("{ ?a p0 ?b . ?b p1 ?c }",
+                 "{ ?a p1 ?b . ?b p0 ?c . ?c p1 ?d . ?d p0 ?e }")
+# qwen3's reduced() config has one key/value head for four query heads, so a
+# shard's two query heads share it: the replicated, sliced kv branch
+LM_ARCHS = ("internlm2-1.8b", "qwen3-8b", "olmoe-1b-7b")
+LM_BATCH, LM_SEQ = 4, 16
+RECSYS_BATCH = 16
+RECSYS_VOCAB = (96, 32, 52)  # 180 table rows: every mesh here divides them
 
 
 def _random_case(world: int) -> dict:
@@ -101,11 +144,14 @@ def _gnn_batch(arch, cell) -> dict:
     edges[:ex["n_edges"]] = rng.integers(0, ex["n_nodes"], (ex["n_edges"], 2))
     labels = np.full(n, -1, np.int32)
     labels[:ex["n_nodes"]] = rng.integers(0, ex["n_out"], ex["n_nodes"])
-    return {"feat": torch.as_tensor(rng.standard_normal((n, ex["d_feat"]), dtype=np.float32)),
-            "edges": torch.as_tensor(edges),
-            "edge_mask": torch.as_tensor(np.arange(e) < ex["n_edges"]),
-            "labels": torch.as_tensor(labels),
-            "node_graph": torch.zeros(n, dtype=torch.int32)}
+    out = {"feat": torch.as_tensor(rng.standard_normal((n, ex["d_feat"]), dtype=np.float32)),
+           "edges": torch.as_tensor(edges),
+           "edge_mask": torch.as_tensor(np.arange(e) < ex["n_edges"]),
+           "labels": torch.as_tensor(labels),
+           "node_graph": torch.zeros(n, dtype=torch.int32)}
+    if arch.id == "schnet":
+        out["positions"] = torch.as_tensor(rng.standard_normal((n, 3), dtype=np.float32))
+    return out
 
 
 def _gnn(mesh) -> dict:
@@ -134,13 +180,15 @@ def _gnn(mesh) -> dict:
         return t.full_tensor() if isinstance(t, DTensor) else t
 
     out = {}
-    for arch_id in GNN_ARCHS:
+    for arch_id in GNN_ARCHS + MORE_GNN_ARCHS:
         for dtype, kind in (("float32", base.GNNArch), ("float64", F64Arch)):
             arch = kind(arch_id, configs.get(arch_id).reduced())
             cell = dataclasses.replace(arch.cells()["full_graph_sm"], extras=dict(GNN_CELL))
             cfg = arch.cell_cfg(cell)
             batch = _gnn_batch(arch, cell)
             batch["feat"] = batch["feat"].to(cfg.dtype)
+            if "positions" in batch:
+                batch["positions"] = batch["positions"].to(cfg.dtype)
             plain = gnn.init_params(cfg, SEED, device="cpu")
             model = copy.deepcopy(plain)
             placed = sh.place({"params": model, "opt": adamw.init(list(model.parameters()))},
@@ -159,10 +207,11 @@ def _gnn(mesh) -> dict:
                 grads = []
                 with rules, implicit:
                     if dtype == "float64":
-                        # the zero positions GNNArch.step gives a non-geometric cell
+                        # the zero positions GNNArch.step gives a batch without any
                         zeros = torch.zeros((b["feat"].shape[0], 3), dtype=cfg.dtype)
                         params = list(state["params"].parameters())
-                        loss = gnn.loss_fn(cfg, state["params"], dict(b, positions=zeros))
+                        loss = gnn.loss_fn(cfg, state["params"],
+                                           dict(b, positions=b.get("positions", zeros)))
                         grads = torch.autograd.grad(loss, params, allow_unused=True)
                     _, metrics = arch.step(cell)(state, b)
                 res[name] = dict(
@@ -172,18 +221,24 @@ def _gnn(mesh) -> dict:
     return out
 
 
+def _words(chi) -> np.ndarray:
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.core import bitops
+
+    return bitops.words_np(bitops.pack(chi.full_tensor() if isinstance(chi, DTensor) else chi))
+
+
 def _q_sparse(mesh) -> dict:
     """One ``sparse`` sweep of the q_sparse cell (``DualsimArch.step``):
     chi's packed words from the plain operands and from the operands
     placed as ``state_shardings``' rules place them (edges sharded over
     every mesh axis, chi's columns over the non-pod axes)."""
-    from torch.distributed.tensor import DTensor, distribute_tensor
     from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch import configs
-    from repro_torch.core import bitops, dualsim, soi, sparql
+    from repro_torch.core import dualsim, soi, sparql
     from repro_torch.data import synth
-    from repro_torch.distributed import shard as sh
     from repro_torch.distributed.ctx import logical_axis_rules
 
     arch = configs.get("dualsim-lubm")
@@ -191,27 +246,228 @@ def _q_sparse(mesh) -> dict:
     g = synth.random_graph(n_nodes=512, n_labels=2, n_edges=4096, seed=SEED)
     c = soi.compile_soi(soi.build_soi(sparql.parse(QUERY)), g)
     ops = dualsim.make_sparse_operands(c, g, device="cpu")
-    specs = sh.dualsim_sparse_specs(mesh)
-    fields = {f.name: getattr(ops, f.name) for f in dataclasses.fields(ops)}
-    placed = {}
-    for name, val in fields.items():
-        if name not in specs or val is None:
-            placed[name] = val
-            continue
-
-        def put(t, name=name):
-            return distribute_tensor(t, mesh, sh.named(mesh, t.shape, specs[name]).placements)
-
-        placed[name] = tuple(put(t) for t in val) if isinstance(val, tuple) else put(val)
-    placed_ops = dataclasses.replace(ops, **placed)
     step = arch.step(cell)
     chi, _ = step(ops, {})
     with logical_axis_rules(mesh), implicit_replication():
-        chi_sh, _ = step(placed_ops, {})
-    chi_sh = chi_sh.full_tensor() if isinstance(chi_sh, DTensor) else chi_sh
-    return dict(plain=bitops.words_np(bitops.pack(chi)),
-                sharded=bitops.words_np(bitops.pack(chi_sh)),
+        chi_sh, _ = step(arch.place(ops, cell, mesh), {})
+        chi_bl, _ = step(arch.place(ops, cell, mesh, blocked=True), {})
+    return dict(plain=_words(chi), sharded=_words(chi_sh), blocked=_words(chi_bl),
                 live=int(chi.sum()), n=g.n_nodes, v=int(chi.shape[0]))
+
+
+def _q_partitioned(mesh) -> dict:
+    """One sweep of the q_partitioned cell (``DualsimArch.step``) over 4
+    destination blocks, plain and with the blocks sharded over every mesh
+    axis (``state_shardings``' ``edge_src_b`` rule) and chi's columns with
+    them."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch import configs
+    from repro_torch.core import dualsim, soi, sparql
+    from repro_torch.data import synth
+    from repro_torch.distributed.ctx import logical_axis_rules
+
+    arch = configs.get("dualsim-lubm")
+    cell = arch.cells()["q_partitioned"]
+    g = synth.random_graph(n_nodes=500, n_labels=2, n_edges=4096, seed=SEED)
+    c = soi.compile_soi(soi.build_soi(sparql.parse(QUERY)), g)
+    ops = dualsim.make_partitioned_operands(c, g, 4, device="cpu")
+    step = arch.step(cell)
+    chi, _ = step(ops, {})
+    with logical_axis_rules(mesh), implicit_replication():
+        chi_sh, _ = step(arch.place(ops, cell, mesh), {})
+        chi_bl, _ = step(arch.place(ops, cell, mesh, blocked=True), {})
+    return dict(plain=_words(chi), sharded=_words(chi_sh), blocked=_words(chi_bl),
+                live=int(chi.sum()), n=int(chi.shape[1]), v=int(chi.shape[0]))
+
+
+def _q_parallel(mesh) -> dict:
+    """A query-parallel ``sparse`` batch (``batched_soi`` of
+    ``BATCH_QUERIES``) with ``batch16_sparse``'s placement and
+    ``chi_spec``: one sweep through ``DualsimArch.step``, and the whole
+    fixpoint in Gauss–Seidel and Jacobi order, plain and sharded."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch import configs
+    from repro_torch.core import dualsim, soi, sparql
+    from repro_torch.data import synth
+    from repro_torch.distributed.ctx import logical_axis_rules
+    from repro_torch.engine import batcher
+
+    arch = configs.get("dualsim-lubm")
+    cell = arch.cells()["batch16_sparse"]
+    g = synth.random_graph(n_nodes=500, n_labels=2, n_edges=4096, seed=SEED)
+    parts = [soi.build_soi(sparql.parse(q)) for q in BATCH_QUERIES]
+    c = soi.compile_soi(batcher.batched_soi(parts), g)
+    ops = dualsim.make_sparse_operands(c, g, device="cpu")
+    placed = arch.place(ops, cell, mesh)
+    blocked = arch.place(ops, cell, mesh, blocked=True)
+    spec = arch.spec_for("init", cell, mesh)
+    runs = {"sweep": lambda o: arch.step(cell)(o, {}),
+            "gs": lambda o: dualsim.solve_sparse(o, chi_spec=spec),
+            "jacobi": lambda o: dualsim.solve_sparse(o, mode="jacobi_packed", chi_spec=spec)}
+    out = {"v": int(ops.init.shape[0]), "n": g.n_nodes,
+           "rows": str(placed.init.placements)}
+    for name, run in runs.items():
+        chi, it = run(ops)
+        with logical_axis_rules(mesh), implicit_replication():
+            chi_sh, it_sh = run(placed)
+            chi_bl, it_bl = run(blocked)
+        out[name] = dict(plain=_words(chi), sharded=_words(chi_sh), sweeps=(it, it_sh),
+                         live=int(chi.sum()), rows=str(chi_sh.placements),
+                         blocked=_words(chi_bl), blocked_sweeps=it_bl,
+                         blocked_rows=str(chi_bl.placements))
+    return out
+
+
+def _no_chi_spec(mesh) -> str:
+    """The error of a ``sparse`` sweep over DTensor operands without
+    ``chi_spec``."""
+    from repro_torch import configs
+    from repro_torch.core import dualsim, soi, sparql
+    from repro_torch.data import synth
+
+    arch = configs.get("dualsim-lubm")
+    g = synth.random_graph(n_nodes=64, n_labels=2, n_edges=256, seed=SEED)
+    ops = dualsim.make_sparse_operands(soi.compile_soi(soi.build_soi(sparql.parse(QUERY)), g),
+                                       g, device="cpu")
+    try:
+        dualsim.solve_sparse(arch.place(ops, arch.cells()["q_sparse"], mesh), max_sweeps=1)
+    except ValueError as e:
+        return str(e)
+    return ""
+
+
+def _lm(mesh) -> dict:
+    """The dense LM's and the MoE LM's ``reduced()`` f32 train step
+    (``LMArch.step``, one microbatch of ``LM_BATCH x LM_SEQ``) and the
+    gradients of ``loss_fn``, on the plain state and on the state placed by
+    ``state_shardings``, both under the logical-axis rules; every call of
+    ``route`` recorded, and every rank's records gathered."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch import configs
+    from repro_torch.configs import base
+    from repro_torch.distributed import ctx
+    from repro_torch.distributed import shard as sh
+    from repro_torch.distributed.ctx import logical_axis_rules
+    from repro_torch.models import transformer as tr
+    from repro_torch.optimizer import adamw
+
+    def full(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
+    out = {}
+    route = tr.route
+    for arch_id in LM_ARCHS:
+        cfg = configs.get(arch_id).reduced()
+        arch = base.LMArch(cfg)
+        cell = base.Cell("train", "train", batch=LM_BATCH, seq=LM_SEQ)
+        rng = np.random.default_rng(SEED)
+        batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab, (LM_BATCH, LM_SEQ),
+                                                 dtype=np.int32))
+                 for k in ("tokens", "labels")}
+        plain = tr.init_params(cfg, SEED, device="cpu")
+        model = copy.deepcopy(plain)
+        placed = sh.place({"params": model, "opt": adamw.init(list(model.parameters()))},
+                          arch.state_shardings(mesh, cell),
+                          lambda t, ns: distribute_tensor(t.clone(), mesh, ns.placements))
+        placed_batch = sh.place(dict(batch), arch.input_shardings(mesh, cell),
+                                lambda t, ns: distribute_tensor(t, mesh, ns.placements))
+        res = {}
+        for name, state, b in (
+                ("plain", {"params": plain, "opt": adamw.init(list(plain.parameters()))},
+                 batch),
+                ("sharded", placed, placed_batch)):
+            calls = []
+
+            def recorded(cfg_, router, xg, calls=calls):
+                probs, disp = route(cfg_, router, xg)
+                calls.append({k: getattr(disp, k).detach().numpy().copy()
+                              for k in ("expert", "token", "pos", "counts")})
+                return probs, disp
+
+            sharded = name == "sharded"
+            implicit = implicit_replication() if sharded else contextlib.nullcontext()
+            tr.route = recorded
+            try:
+                with logical_axis_rules(mesh), implicit:
+                    params = list(state["params"].parameters())
+                    grads = torch.autograd.grad(tr.loss_fn(cfg, state["params"], b), params)
+                    _, metrics = arch.step(cell)(state, b)
+                    groups = ctx.shard_index(mesh, (ctx.logical_spec((LM_BATCH * LM_SEQ,),
+                                                                      "batch") or P(None))[0])
+            finally:
+                tr.route = route
+            if sharded:
+                every = [None] * dist.get_world_size()
+                dist.all_gather_object(every, (groups, calls))
+                calls = every
+            res[name] = dict(grads=[full(g).detach().numpy() for g in grads],
+                             step={k: float(full(v)) for k, v in metrics.items()},
+                             dispatch=calls)
+        out[arch_id] = res
+    return out
+
+
+def _recsys(mesh) -> dict:
+    """dcn-v2's ``reduced()`` config with ``RECSYS_VOCAB`` (so every mesh
+    here splits the table's rows and ``ctx.lookup`` runs shard-local): one
+    f32 train step and the gradients of ``loss_fn``, plain and sharded."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch import configs
+    from repro_torch.configs import base
+    from repro_torch.distributed import shard as sh
+    from repro_torch.distributed.ctx import logical_axis_rules
+    from repro_torch.models import recsys
+    from repro_torch.optimizer import adamw
+
+    def full(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
+    cfg = dataclasses.replace(configs.get("dcn-v2").reduced(), vocab_sizes=RECSYS_VOCAB)
+    arch = base.RecsysArch(cfg)
+    cell = base.Cell("train_batch", "train", batch=RECSYS_BATCH)
+    rng = np.random.default_rng(SEED)
+    batch = {"dense": torch.as_tensor(rng.standard_normal((RECSYS_BATCH, cfg.n_dense),
+                                                          dtype=np.float32)),
+             "sparse": torch.as_tensor(np.stack([rng.integers(0, v, RECSYS_BATCH)
+                                                 for v in RECSYS_VOCAB], 1).astype(np.int32)),
+             "labels": torch.as_tensor(rng.integers(0, 2, RECSYS_BATCH).astype(np.float32))}
+    plain = recsys.init_params(cfg, SEED, device="cpu")
+    model = copy.deepcopy(plain)
+    state_sh = arch.state_shardings(mesh, cell)
+    placed = sh.place({"params": model, "opt": adamw.init(list(model.parameters()))},
+                      state_sh, lambda t, ns: distribute_tensor(t.clone(), mesh, ns.placements))
+    placed_batch = sh.place(dict(batch), arch.input_shardings(mesh, cell),
+                            lambda t, ns: distribute_tensor(t, mesh, ns.placements))
+    res = {"table": str(placed["params"].table.placements)}
+    for name, state, b in (
+            ("plain", {"params": plain, "opt": adamw.init(list(plain.parameters()))}, batch),
+            ("sharded", placed, placed_batch)):
+        implicit = implicit_replication() if name == "sharded" else contextlib.nullcontext()
+        with logical_axis_rules(mesh), implicit:
+            params = list(state["params"].parameters())
+            grads = torch.autograd.grad(recsys.loss_fn(cfg, state["params"], b), params)
+            _, metrics = arch.step(cell)(state, b)
+        res[name] = dict(grads=[full(g).detach().numpy() for g in grads],
+                         step={k: float(full(v)) for k, v in metrics.items()})
+    return res
+
+
+def _with_model(mesh):
+    """``mesh``, or on the 1-D ``(data,)`` mesh the same ranks as a ``(1,
+    n)`` ``(data, model)`` mesh: the LM and recsys rules name both axes, as
+    every production mesh has them."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if "model" in mesh.mesh_dim_names:
+        return mesh
+    return init_device_mesh("cpu", (1, mesh.size()), mesh_dim_names=("data", "model"))
 
 
 def _cases(world: int) -> dict:
@@ -219,14 +475,20 @@ def _cases(world: int) -> dict:
         "random_amax": lambda m: _seg_reduce(m, _random_case(world), "amax"),
         "random_amin": lambda m: _seg_reduce(m, _random_case(world), "amin"),
         "gnn": _gnn,
+        "q_sparse": _q_sparse,
+        "q_partitioned": _q_partitioned,
+        "lm": lambda m: _lm(_with_model(m)),
+        "recsys": lambda m: _recsys(_with_model(m)),
     }
+    if world == 4:
+        cases["q_parallel"] = _q_parallel
     if world == 2:
         cases.update({
+            "no_chi_spec": _no_chi_spec,
             "example": lambda m: _seg_reduce(m, EXAMPLE, "amax"),
             "ties": lambda m: _seg_reduce(m, TIES, "amax"),
             "amin": lambda m: _seg_reduce(m, dict(TIES, vals=[1.0, 7.0, 1.0, 1.0]), "amin"),
             "empty": lambda m: _seg_reduce(m, EMPTY, "amax"),
-            "q_sparse": _q_sparse,
         })
     return cases
 
@@ -348,7 +610,124 @@ def test_gnn_sharded_step_equals_plain_step(groups, world, arch_id, dtype):
             np.testing.assert_allclose(a, b, rtol=1e-12, atol=1e-14, err_msg=f"gradient {k}")
 
 
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("arch_id", MORE_GNN_ARCHS)
+def test_more_gnn_sharded_steps_equal_plain_steps(groups, world, arch_id, dtype):
+    res = groups[world]["gnn"][arch_id, dtype]
+    plain, sharded = res["plain"], res["sharded"]
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(sharded["step"][key], plain["step"][key], rtol=1e-5,
+                                   atol=0, err_msg=key)
+    assert (len(plain["grads"]) > 0) == (dtype == "float64")
+    assert len(sharded["grads"]) == len(plain["grads"])
+    for k, (a, b) in enumerate(zip(sharded["grads"], plain["grads"])):
+        assert (a is None) == (b is None), k
+        if a is not None:
+            assert a.dtype == np.float64
+            np.testing.assert_allclose(a, b, rtol=1e-12, atol=1e-14, err_msg=f"gradient {k}")
+
+
 def test_q_sparse_sweep_sharded_equals_one_rank(groups):
     got = groups[2]["q_sparse"]
     assert 0 < got["live"] < got["v"] * got["n"]  # the sweep removed some, not all
     np.testing.assert_array_equal(got["sharded"], got["plain"])
+
+
+def test_q_sparse_sweep_on_the_2x2_mesh_equals_one_rank(groups):
+    """Chi's words split over both mesh dims (the edges too)."""
+    got = groups[4]["q_sparse"]
+    assert 0 < got["live"] < got["v"] * got["n"]
+    np.testing.assert_array_equal(got["sharded"], got["plain"])
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_q_partitioned_sweep_sharded_equals_one_rank(groups, world):
+    got = groups[world]["q_partitioned"]
+    assert 0 < got["live"] < got["v"] * got["n"]
+    np.testing.assert_array_equal(got["sharded"], got["plain"])
+
+
+@pytest.mark.parametrize("run", ["sweep", "gs", "jacobi"])
+def test_query_parallel_sparse_equals_one_rank(groups, run):
+    """Two queries' variables over ``data`` (the second query's split
+    across the two row shards), words over ``model``, 500 nodes (16 words,
+    not a multiple of the node shards' bits): chi bit for bit and the
+    sweeps equal, the result's rows still split over ``data``."""
+    got = groups[4]["q_parallel"]
+    assert got["v"] == 8 and "Shard(dim=0)" in got["rows"]
+    res = got[run]
+    assert 0 < res["live"] < got["v"] * got["n"]
+    assert res["sweeps"][0] == res["sweeps"][1]
+    assert "Shard(dim=0)" in res["rows"]
+    np.testing.assert_array_equal(res["sharded"], res["plain"])
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("cell", ["q_sparse", "q_partitioned"])
+def test_blocked_sweep_sharded_equals_one_rank(groups, world, cell):
+    """The same sweeps over each shard's edges in the blocked layout (a
+    card's, here through the kernel wrapper's plain version): chi bit for
+    bit."""
+    got = groups[world][cell]
+    assert 0 < got["live"] < got["v"] * got["n"]
+    np.testing.assert_array_equal(got["blocked"], got["plain"])
+
+
+def test_sparse_sweep_over_dtensors_needs_chi_spec(groups):
+    assert "chi_spec" in groups[2]["no_chi_spec"]
+
+
+@pytest.mark.parametrize("run", ["sweep", "gs", "jacobi"])
+def test_query_parallel_blocked_sparse_equals_one_rank(groups, run):
+    """The query-parallel batch with each edge shard in the blocked layout:
+    chi bit for bit, the sweeps equal, the rows split over ``data``."""
+    res = groups[4]["q_parallel"][run]
+    assert 0 < res["live"]
+    assert res["blocked_sweeps"] == res["sweeps"][0]
+    assert "Shard(dim=0)" in res["blocked_rows"]
+    np.testing.assert_array_equal(res["blocked"], res["plain"])
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("arch_id", LM_ARCHS)
+def test_lm_sharded_step_equals_plain_step(groups, world, arch_id):
+    res = groups[world]["lm"][arch_id]
+    plain, sharded = res["plain"], res["sharded"]
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(sharded["step"][key], plain["step"][key], rtol=1e-5,
+                                   atol=0, err_msg=key)
+    assert len(sharded["grads"]) == len(plain["grads"]) > 0
+    for k, (a, b) in enumerate(zip(sharded["grads"], plain["grads"])):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4 * np.abs(b).max(),
+                                   err_msg=f"gradient {k}")
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_moe_dispatch_sharded_equals_plain(groups, world):
+    """Every rank routes the groups its batch shard holds (replicated
+    across the expert split) exactly as the plain step routes them."""
+    res = groups[world]["lm"]["olmoe-1b-7b"]
+    plain = res["plain"]["dispatch"]
+    assert len(plain) > 0
+    g_total = plain[0]["expert"].shape[0]
+    for rank, ((g, n_g), calls) in enumerate(res["sharded"]["dispatch"]):
+        assert len(calls) == len(plain), rank
+        per = g_total // n_g
+        for i, (got, want) in enumerate(zip(calls, plain)):
+            for key in ("expert", "token", "pos", "counts"):
+                np.testing.assert_array_equal(got[key], want[key][g * per:(g + 1) * per],
+                                              err_msg=f"rank {rank} call {i} {key}")
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_recsys_sharded_step_equals_plain_step(groups, world):
+    res = groups[world]["recsys"]
+    assert "Shard(dim=0)" in res["table"]  # the lookup is the sharded one
+    plain, sharded = res["plain"], res["sharded"]
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(sharded["step"][key], plain["step"][key], rtol=1e-5,
+                                   atol=0, err_msg=key)
+    for k, (a, b) in enumerate(zip(sharded["grads"], plain["grads"])):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4 * np.abs(b).max(),
+                                   err_msg=f"gradient {k}")
