@@ -154,9 +154,18 @@ failure fatal:
    (``batch16_sparse``'s placement and ``chi_spec``) and one
    ``solve_partitioned`` sweep over 4 DTensor blocks (``q_partitioned``'s),
    chi's words equal to the same sweeps on the plain CPU operands bit for
-   bit, and K1 launched in each (the counts zeroed before each sweep).
-   Phases 8, 9 and 10a-10d reach no TPU kernel: the launch counts are
-   zeroed before each and must stay zero.
+   bit, and K1 launched in each (the counts zeroed before each sweep);
+   (f) on its own such mesh, the LM serving steps on DTensor state:
+   internlm2-1.8b at full width and depth (prefill 4 x 512, 8 decode
+   steps) and mixtral-8x7b at full width, 2 of its 32 layers (prefill 1 x
+   6,144, its 4,096-position window full, 8 steps), bf16, the parameters
+   placed by ``LMArch.state_shardings`` and the KV cache as prefill
+   returns it, under the logical-axis rules, TF32 off: every step's logits
+   and the last cache within rtol 2e-2 (atol 2e-2 x the largest magnitude)
+   of the plain steps on the card, the cache's placements after prefill and
+   after every step equal to ``lm_cache_spec``'s, its local shard on the
+   card.  Phases 8, 9, 10a-10d and 10f reach no TPU kernel: the launch
+   counts are zeroed before each and must stay zero.
 
 Every phase but 3c runs with ``REPRO_MACHINE_SPEC=off``: engines are
 priced by the hand-tuned model whatever spec was saved on the machine.
@@ -225,6 +234,10 @@ OLMOE_TRAIN_LAYERS = 9
 MOE_TRAIN_ARGV = ["--arch", "olmoe-1b-7b", "--steps", "10", "--batch", "8",
                   "--seq", "1024", "--keep", "1"]
 MOE_RANGES = ("moe_router", "moe_sort", "moe_dispatch", "moe_experts", "moe_combine")
+# phase 10f: the LM serving steps on DTensor state, (arch, layers kept or
+# None for all, batch, prompt); mixtral's prompt fills its 4,096 window
+SHARDED_SERVING = (("internlm2-1.8b", None, 4, 512), ("mixtral-8x7b", 2, 1, 6144))
+SHARDED_DECODE_STEPS = 8
 # phase 9: the GNN family
 GNN_IDS = ("gatedgcn", "gat-cora", "pna", "schnet")
 H100_BF16_TFLOPS = 989.0  # dense bf16 peak, NVIDIA's data sheet (SXM, 700 W)
@@ -3418,6 +3431,119 @@ def phase_dualsim_sharding(seed: int = 0) -> None:
     log(f"phase 10e dualsim seconds: {time.perf_counter() - t0:.1f}")
 
 
+def phase_lm_sharded_serving(seed: int, cfgs=None, decode_steps: int = SHARDED_DECODE_STEPS,
+                             tol: float = 2e-2) -> None:
+    """Phase 10f: prefill then ``decode_steps`` decode steps of each LM in
+    ``cfgs`` (``(config, batch, prompt)``; by default ``SHARDED_SERVING`` in
+    bf16 with bf16 parameters, the serving config) on its own 1x1 (data,
+    model) mesh over the card: the parameters placed by
+    ``LMArch.state_shardings``, the tokens by ``input_shardings``, the
+    cache as prefill returns it, under the logical-axis rules; and the same
+    steps on the plain state on the card.  Every step's logits and the
+    last cache within rtol ``tol`` (atol ``tol`` x the largest magnitude),
+    the cache's and ``pos``'s placements after prefill and after every step
+    equal to ``lm_cache_spec``'s, the local shards on the card.  The launch
+    counts are zeroed before and must stay zero."""
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch import configs, kernels
+    from repro_torch.configs import base
+    from repro_torch.distributed import shard as sh
+    from repro_torch.distributed.ctx import logical_axis_rules
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import transformer as tr
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # phase 10b leaves it on
+    t_phase = time.perf_counter()
+    if cfgs is None:
+        cfgs = []
+        for arch_id, layers, batch, prompt in SHARDED_SERVING:
+            cfg = configs.get(arch_id).cfg
+            cfgs.append((dataclasses.replace(
+                cfg, n_layers=layers or cfg.n_layers, dtype=torch.bfloat16,
+                param_dtype=torch.bfloat16, remat=False), batch, prompt))
+    kernels.reset_launches()
+    mesh = mesh_mod.make_host_mesh(CARD)
+
+    def full(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
+    def close(name, got, want):
+        """The worst element's share of its tolerance, ``|got - want| / (tol *
+        largest |want| + tol * |want|)``; over 1 (or a non-finite value)
+        fails."""
+        got, want = full(got).float(), want.float()
+        scale = float(want.abs().max())
+        share = float(((got - want).abs() / (tol * scale + tol * want.abs())).max())
+        if not bool(torch.isfinite(got).all()) or not share <= 1.0:
+            raise AssertionError(f"phase 10f: {name} differs from the plain step's (max abs "
+                                 f"{float((got - want).abs().max()):.3g}, largest |value| "
+                                 f"{scale:.3g}, {share:.3g} of the tolerance)")
+        return share
+
+    try:
+        for cfg, batch, prompt in cfgs:
+            t0 = time.perf_counter()
+            arch = base.LMArch(cfg)
+            cells = [base.Cell("prefill", "prefill", batch=batch, seq=prompt)]
+            cells += [base.Cell("decode", "decode", batch=batch, seq=prompt)] * decode_steps
+            rng = np.random.default_rng(seed)
+            toks = [torch.as_tensor(rng.integers(0, cfg.vocab, (batch, prompt if i == 0 else 1))
+                                    .astype(np.int32), device=CARD)
+                    for i in range(len(cells))]
+            s_cache = min(prompt, cfg.sliding_window or prompt)
+            specs = sh.lm_cache_spec(mesh, cfg, batch, s_cache)
+            kv_shape = (cfg.n_layers, batch, s_cache, cfg.n_kv_heads, cfg.head_dim)
+            want_pl = {k: sh.named(mesh, (batch,) if k == "pos" else kv_shape,
+                                   specs[k]).placements for k in ("k", "v", "pos")}
+            plain = tr.init_params(cfg, seed, device=CARD)
+            want, cache = [], None
+            for cell, t in zip(cells, toks):
+                logits, cache = (tr.prefill_step(cfg, plain, t) if cell.kind == "prefill"
+                                 else tr.decode_step(cfg, plain, cache, t))
+                want.append(logits)
+            want_cache = cache
+            del plain
+            params = sh.place(tr.init_params(cfg, seed, device=CARD),
+                              arch.state_shardings(mesh, cells[1])["params"],
+                              lambda t, ns: distribute_tensor(t, mesh, ns.placements))
+            t1 = time.perf_counter()
+            errs, cache = [], None
+            with logical_axis_rules(mesh), implicit_replication():
+                for i, (cell, t) in enumerate(zip(cells, toks)):
+                    t = distribute_tensor(
+                        t, mesh, arch.input_shardings(mesh, cell)["tokens"].placements)
+                    logits, cache = (tr.prefill_step(cfg, params, t) if cell.kind == "prefill"
+                                     else tr.decode_step(cfg, params, cache, t))
+                    got_pl = {k: getattr(cache[k], "placements", None) for k in want_pl}
+                    if got_pl != want_pl or cache["k"].to_local().device.type != CARD:
+                        raise AssertionError(f"phase 10f: {cfg.name} step {i}: cache "
+                                             f"placements {got_pl} on "
+                                             f"{cache['k'].to_local().device}, want {want_pl} "
+                                             f"on {CARD}")
+                    errs.append(close(f"{cfg.name} step {i} logits", logits, want[i]))
+            sync_s = time.perf_counter() - t1
+            cache_err = max(close(f"{cfg.name} cache {k}", cache[k], want_cache[k])
+                            for k in ("k", "v"))
+            if not torch.equal(full(cache["pos"]), want_cache["pos"]):
+                raise AssertionError(f"phase 10f: {cfg.name} pos differs")
+            log(f"phase 10f: {cfg.name}, {cfg.n_layers} layers, {cfg.dtype}, on the 1x1 mesh "
+                f"({card_line()}): prefill {batch} x {prompt} + {decode_steps} decode steps "
+                f"on DTensor state == the plain steps (the worst logit at {max(errs):.3g} of its "
+                f"tolerance, the last cache's element at {cache_err:.3g}); the cache "
+                f"{tuple(cache['k'].shape)} placed {want_pl['k']} after every step, pos "
+                f"{want_pl['pos']}; the sharded steps {sync_s:.1f} s; seconds "
+                f"{time.perf_counter() - t0:.1f}")
+            del params, cache, want, want_cache, logits
+            free_card()
+    finally:
+        mesh_mod.release()
+    no_launches("10f", t_phase)
+
+
 def phase_recsys(seed: int) -> None:
     """Phase 10, the recsys family: 10a parity, 10b dcn-v2 training at full
     width, 10c serving and retrieval, 10d sharding on the card; the launch
@@ -3521,6 +3647,7 @@ def main() -> int:
     phase_moe(args.seed)
     phase_gnn(args.seed)
     phase_recsys(args.seed)
+    phase_lm_sharded_serving(args.seed)
     log(f"total {time.perf_counter() - t_start:.1f}s")
     log(card_line())
     log(json.dumps({"kernels": records}))

@@ -207,8 +207,11 @@ def data_axes(mesh) -> tuple[str, ...]:
 
 
 def batch_spec(mesh, batch: int) -> P:
-    """Shard the batch dim over (pod, data) with divisibility fallback."""
-    axes = data_axes(mesh)
+    """Shard the batch dim over (pod, data) with divisibility fallback.
+    An axis of one device is left out: it splits nothing, and DTensor
+    refuses to reshape a dim sharded over it (a batch-1 ``[1, S, d]``
+    hidden state flattened for a product)."""
+    axes = tuple(a for a in data_axes(mesh) if mesh_shape(mesh)[a] > 1)
     while axes and batch % axis_size(mesh, axes) != 0:
         axes = axes[1:]
     return P(axes if axes else None)

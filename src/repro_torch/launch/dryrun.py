@@ -18,8 +18,11 @@ and one dispatch mode below DTensor sees every operation a device runs:
   operation's inputs read and outputs written (a gather's or a scatter's
   rows, not its whole table), with no fusion;
 * collective bytes are the output bytes of the functional collectives
-  (``_c10d_functional``) the DTensor redistributions issue, as the JAX
-  package counts a collective's output shape.  On a CPU mesh DTensor runs
+  (``_c10d_functional``) the DTensor redistributions and the shard-local
+  code issue, as the JAX package counts a collective's output shape; an
+  all-to-all in which a rank hears from one source
+  (``funcol.permute_tensor``) is a ``collective-permute``, as XLA names
+  it.  On a CPU mesh DTensor runs
   an all-to-all (``Shard(i)`` to ``Shard(j)`` on one mesh dim) as an
   all-gather of the whole and a chunk; :func:`counted_alltoall` counts
   each such call as one all-to-all of the local shard's bytes instead, and
@@ -161,7 +164,10 @@ class Account(TorchDispatchMode):
         packet = func._overloadpacket
         name = packet.__name__
         if func.namespace == "_c10d_functional" and name in _COLLECTIVES:
-            key = _COLLECTIVES[name] + "@0"
+            kind = _COLLECTIVES[name]
+            if name == "all_to_all_single" and sum(1 for n in args[1] if n) == 1:
+                kind = "collective-permute"  # funcol.permute_tensor: one source a rank
+            key = kind + "@0"
             self.collectives[key] = self.collectives.get(key, 0.0) + sum(
                 _nbytes(t) for t in _tensors(out))
         outs = _tensors(out)

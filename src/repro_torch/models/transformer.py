@@ -18,11 +18,15 @@ expert products.
 
 The reference's ``constrain`` sites annotate activations with logical
 axes; outside a rule context they do nothing.  Under one, on DTensors
-(the dry-run), three pieces run shard-local through ``local_map``, where
+(the dry-run), four pieces run shard-local through ``local_map``, where
 DTensor's own rules would gather or fail: attention over batch and head
-shards (:func:`_attend`), the MoE block over the experts' split
+shards (:func:`_attend`), decode attention and the cache's roll over a
+KV cache whose sequence is split (:func:`_attend_split`,
+:func:`_roll_split`), the MoE block over the experts' split
 (:func:`_moe_sharded`), and the cross entropy's target logit, a one-hot
-contraction over the vocab-sharded logits.
+contraction over the vocab-sharded logits.  The serving steps keep the
+cache in ``shard.lm_cache_spec``'s placement: prefill returns it so, and
+decode attends over it and rolls it without gathering it.
 """
 from __future__ import annotations
 
@@ -33,7 +37,7 @@ import types
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
@@ -374,6 +378,122 @@ def _attend(q, k, v, q_pos, k_pos, window):
                          (None, kgrad, kgrad, None, None))(q, k, v, q_pos, k_pos)
 
 
+def _split_dims(t: torch.Tensor, dim: int) -> tuple[int, ...]:
+    """The mesh dims that split tensor dim ``dim`` of a DTensor, major to
+    minor (none for a plain tensor)."""
+    if not isinstance(t, DTensor):
+        return ()
+    return tuple(k for k, p in enumerate(t.placements) if p == Shard(dim))
+
+
+def _attend_split(q, k, v, k_cache, v_cache, q_pos, k_pos, window):
+    """One token's attention over a KV cache ``[B, S, kv, hd]`` whose
+    sequence is split across the mesh (``shard.lm_cache_spec``), as flash
+    decoding splits it, through ``local_map``: each shard takes its batch
+    rows of ``q [B, 1, h, hd]`` with every query head, its slice of the
+    cache and of ``k_pos``, and computes the softmax's unnormalised partial
+    ``(m, l, acc)`` in f32 over its keys, as :func:`_sdpa_block` does.  The
+    new token's key and value (``k``, ``v [B, 1, kv, hd]``) join the last
+    shard's partial, the shard that holds them after the roll.  The
+    partials merge over the sequence's mesh dims (an all-reduce max of
+    ``m``, then one all-reduce sum of ``l`` and ``acc``); a shard whose
+    keys are all masked adds 0 (its ``m`` sits at the floor).  The output
+    keeps the query heads split as :func:`_attend`'s does."""
+    from torch.distributed import _functional_collectives as funcol
+
+    mesh = k_cache.device_mesh
+    names = mesh.mesh_dim_names
+    cpl = tuple(k_cache.placements)  # the cache's, and k_pos's [B, S]
+    seq = _split_dims(k_cache, 1)
+    bpl = tuple(p if p == Shard(0) else Replicate() for p in cpl)  # the batch rows
+    b, _, h, hd = q.shape
+    heads = (ctx.logical_spec(tuple(q.shape), "batch", None, "heads", None) or (None,) * 4)[2]
+    hdims = [names.index(a) for a in ((heads,) if isinstance(heads, str) else heads or ())]
+    if any(bpl[k] != Replicate() for k in hdims):
+        heads, hdims = None, []
+    opl = [Shard(2) if k in hdims else p for k, p in enumerate(bpl)]
+    hl = h // sh.axis_size(mesh, heads)
+    idx, n = ctx.shard_index(mesh, tuple(names[k] for k in seq))
+    scale = 1.0 / math.sqrt(hd)
+
+    def local(ql, kc, vc, kn, vn, qp, kp):
+        bl, kvh = ql.shape[0], kc.shape[2]
+        qg = ql.reshape(bl, 1, kvh, h // kvh, hd).permute(0, 2, 3, 1, 4)  # [B, KV, G, 1, hd]
+        logits = _logits(qg, kc.transpose(1, 2), _mask_bias(qp, kp, window), scale)
+        if idx == n - 1:
+            new = _logits(qg, kn.transpose(1, 2), _mask_bias(qp, qp, window), scale)
+            logits = torch.cat([logits, new], dim=-1)
+        m = torch.clamp(torch.amax(logits, dim=-1), min=MAX_FLOOR)
+        p = torch.exp(logits - m[..., None])
+        # the PV product of p cast to the activation dtype, as _pv's, summed
+        # in f32 over the cache and the new token and rounded once below
+        s_l = kc.shape[1]
+        pc = p.to(ql.dtype).to(torch.float32)
+        acc = _pv(pc[..., :s_l], vc.to(torch.float32).transpose(1, 2), torch.float32)
+        if p.shape[-1] > s_l:
+            acc = acc + _pv(pc[..., s_l:], vn.to(torch.float32).transpose(1, 2), torch.float32)
+        m_all = m
+        for d in seq:
+            m_all = funcol.all_reduce(m_all, "max", (mesh, d))
+        corr = torch.exp(m - m_all)
+        la = torch.cat([acc * corr[..., None], (torch.sum(p, dim=-1) * corr)[..., None]], -1)
+        for d in seq:
+            la = funcol.all_reduce(la, "sum", (mesh, d))
+        # normalised in the activation dtype, as gqa_attention's one block is
+        o = la[..., :hd].to(ql.dtype) / torch.clamp(la[..., hd:], min=1e-30).to(ql.dtype)
+        o = o.permute(0, 3, 1, 2, 4).reshape(bl, 1, h, hd)
+        j = ctx.shard_index(mesh, heads)[0] * hl
+        return o[:, :, j:j + hl]
+
+    q_pos, k_pos = ctx.as_dtensor(q_pos, mesh), ctx.as_dtensor(k_pos, mesh)
+    return ctx.local_map(local, opl, (bpl, cpl, cpl, bpl, bpl, bpl, cpl), mesh)(
+        q, k_cache, v_cache, k, v, q_pos, k_pos)
+
+
+def _from_next(x: torch.Tensor, mesh, dims: tuple[int, ...]) -> torch.Tensor:
+    """Inside ``local_map``: on each shard of the split of mesh dims
+    ``dims`` (major to minor), the ``x`` of the next shard along that split,
+    cyclically.  One collective permute a dim that splits, minor first; a
+    more major dim's permute passes on what the minor ones brought, taken
+    where every more minor index is at its end."""
+    from torch.distributed import _functional_collectives as funcol
+
+    out, done = x.reshape(-1), []
+    for d in reversed(dims):
+        n = mesh.size(d)
+        if n > 1:
+            moved = funcol.wait_tensor(
+                funcol.permute_tensor(out, [(r - 1) % n for r in range(n)], (mesh, d)))
+            if all(mesh.get_local_rank(e) == mesh.size(e) - 1 for e in done):
+                out = moved
+        done.append(d)
+    return out.reshape(x.shape)
+
+
+def _roll_split(k_cache, v_cache, k_new, v_new):
+    """The decode roll, ``cat([cache, new], 2)[:, :, 1:]`` of a cache ``[L,
+    B, S, kv, hd]`` and the new tokens' ``[L, B, 1, kv, hd]``, on a cache
+    whose sequence is split across the mesh, without gathering it: each
+    shard drops its first position and appends the next shard's first (one
+    collective permute of ``[2, L, B_l, 1, kv, hd]`` a splitting mesh dim,
+    along the split's order), the last shard the new tokens'.  The cache
+    keeps its placements."""
+    mesh = k_cache.device_mesh
+    cpl = tuple(k_cache.placements)
+    seq = _split_dims(k_cache, 2)
+    npl = tuple(p if p == Shard(1) else Replicate() for p in cpl)
+    idx, n = ctx.shard_index(mesh, tuple(mesh.mesh_dim_names[d] for d in seq))
+
+    def local(kc, vc, kn, vn):
+        nxt = _from_next(torch.stack([kc[:, :, :1], vc[:, :, :1]]), mesh, seq)
+        if idx == n - 1:
+            nxt = torch.stack([kn, vn]).to(kc.dtype)
+        return torch.cat([kc[:, :, 1:], nxt[0]], 2), torch.cat([vc[:, :, 1:], nxt[1]], 2)
+
+    return ctx.local_map(local, (list(cpl), list(cpl)), (cpl, cpl, npl, npl), mesh)(
+        k_cache, v_cache, k_new, v_new)
+
+
 def attention(
     cfg: LMConfig,
     p,
@@ -400,6 +520,11 @@ def attention(
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
+    if k_cache is not None and _split_dims(k_cache, 1):
+        # a sequence-split cache is not extended here: the new (k, v) are
+        # returned alone, and decode_step rolls them in (_roll_split)
+        o = _attend_split(q, k, v, k_cache, v_cache, positions, k_pos, cfg.sliding_window)
+        return o.reshape(b, sq, h * hd) @ p.wo.to(cfg.dtype), (k, v)
     if k_cache is not None:
         k_full = torch.cat([k_cache.to(k.dtype), k], dim=1)
         v_full = torch.cat([v_cache.to(v.dtype), v], dim=1)
@@ -462,8 +587,12 @@ def route(cfg: LMConfig, router: torch.Tensor, xg: torch.Tensor):
         counts.scatter_add_(1, e_s, torch.ones_like(e_s))
         starts = torch.cumsum(counts, dim=-1) - counts
         pos = torch.arange(tkl, device=xg.device)[None] - torch.gather(starts, -1, e_s)
-    cap = max(int(math.ceil(tl * k / e * m.capacity_factor)), k)
-    return probs, Dispatch(e_s, tok_s, w_s, pos, counts, cap)
+    return probs, Dispatch(e_s, tok_s, w_s, pos, counts, capacity(m, tl))
+
+
+def capacity(m: MoEConfig, tl: int) -> int:
+    """Expert capacity per group of ``tl`` tokens."""
+    return max(int(math.ceil(tl * m.top_k / m.n_experts * m.capacity_factor)), m.top_k)
 
 
 def moe_block(cfg: LMConfig, p, x: torch.Tensor, groups: int | None = None):
@@ -530,7 +659,15 @@ def _moe_sharded(cfg: LMConfig, p, xg: DTensor, shape: tuple[int, int, int]):
     partial sum across the split, and the aux loss's routed fractions and
     mean probabilities are averages across the groups' shards.  Every
     replicated argument's gradient is a partial sum across the shards that
-    use it differently."""
+    use it differently.
+
+    Without gradients, where the tokens are replicated over the mesh dims
+    that split the weights' ``d_model`` (FSDP's; a batch-1 decode) and
+    their dispatched slots are fewer elements than the weights a shard
+    would gather, the weights stay where they lie: each shard contracts
+    its slice of ``d_model``, the gate and up products are all-reduced
+    over those dims, and the output comes back split over them."""
+    from torch.distributed import _functional_collectives as funcol
     from torch.distributed.tensor import Partial
 
     m = cfg.moe
@@ -551,7 +688,21 @@ def _moe_sharded(cfg: LMConfig, p, xg: DTensor, shape: tuple[int, int, int]):
     split_dims = {i for i, pl in enumerate(sh.to_placements(sh.P(split), mesh))
                   if pl != Replicate()}
     batch_dims = {k for k, pl in enumerate(xpl) if pl != Replicate()}
-    ypl = [Partial() if k in split_dims else pl for k, pl in enumerate(xpl)]
+    fsdp = _split_dims(p.w_gate, 1)
+    n_fsdp = math.prod(mesh.size(k) for k in fsdp)
+    fsdp_names = tuple(mesh.mesh_dim_names[k] for k in fsdp)
+    # the weights stay where the gate and up partials a shard all-reduces,
+    # 2 x [G_l, E_l, C, fe_l], are fewer than the 3 x [E_l, d (n-1)/n, fe_l]
+    # it would gather
+    stay = (bool(fsdp) and not torch.is_grad_enabled() and fsdp == _split_dims(p.w_down, 2)
+            and not set(fsdp) & (batch_dims | split_dims)
+            and 2 * (g_ // sh.axis_size(mesh, bat)) * capacity(m, tl) * n_fsdp
+            < 3 * d * (n_fsdp - 1))
+    if stay:
+        wg_pl = tuple(Shard(1) if k in fsdp else pl for k, pl in enumerate(wg_pl))
+        wd_pl = tuple(Shard(2) if k in fsdp else pl for k, pl in enumerate(wd_pl))
+    ypl = [Partial() if k in split_dims else Shard(2) if stay and k in fsdp else pl
+           for k, pl in enumerate(xpl)]
     # the aux loss's terms average over the groups' shards and over the
     # split (where every shard holds the same terms), each shard's share a
     # partial sum of the mean divided by their count (a ``Partial("avg")``
@@ -575,16 +726,27 @@ def _moe_sharded(cfg: LMConfig, p, xg: DTensor, shape: tuple[int, int, int]):
         gi = torch.arange(gl, device=xl.device)[:, None].expand_as(le)
         ek = torch.where(keep, le, torch.zeros_like(le))
         pk = torch.where(keep, disp.pos, torch.full_like(disp.pos, disp.cap))
-        vals = xl[gi, disp.token].to(cfg.dtype) * keep[..., None].to(cfg.dtype)
-        buf = xl.new_zeros((gl, e_l, disp.cap + 1, d), dtype=cfg.dtype)
+        xd = xl
+        if stay:  # this shard's slice of d_model
+            lo = ctx.shard_index(mesh, fsdp_names)[0] * wg.shape[1]
+            xd = xl[..., lo:lo + wg.shape[1]]
+        vals = xd[gi, disp.token].to(cfg.dtype) * keep[..., None].to(cfg.dtype)
+        buf = xl.new_zeros((gl, e_l, disp.cap + 1, xd.shape[-1]), dtype=cfg.dtype)
         buf = buf.index_put((gi, ek, pk), vals, accumulate=True)[:, :, :disp.cap]
-        gact = F.silu(torch.einsum("gecd,edf->gecf", buf, wg.to(cfg.dtype)))
-        u = torch.einsum("gecd,edf->gecf", buf, wu.to(cfg.dtype))
+        if stay:  # the gate and up products' partial sums over d_model
+            gu = torch.stack([torch.einsum("gecd,edf->gecf", buf, wg.to(cfg.dtype)),
+                              torch.einsum("gecd,edf->gecf", buf, wu.to(cfg.dtype))])
+            for k in fsdp:
+                gu = funcol.all_reduce(gu, "sum", (mesh, k))
+            gact, u = F.silu(gu[0]), gu[1]
+        else:
+            gact = F.silu(torch.einsum("gecd,edf->gecf", buf, wg.to(cfg.dtype)))
+            u = torch.einsum("gecd,edf->gecf", buf, wu.to(cfg.dtype))
         ye = F.pad(torch.einsum("gecf,efd->gecd", gact * u, wd.to(cfg.dtype)),
                    (0, 0, 0, 1))  # the spare row reads 0
         w = (disp.weight * keep.to(disp.weight.dtype))[..., None]
-        yt = ye.new_zeros((gl, tl, d)).index_put((gi, disp.token), ye[gi, ek, pk] * w,
-                                                 accumulate=True)
+        yt = ye.new_zeros((gl, tl, ye.shape[-1])).index_put(
+            (gi, disp.token), ye[gi, ek, pk] * w, accumulate=True)
         frac = torch.sum(disp.counts, dim=0).to(torch.float32) / (gl * tl * m.top_k)
         return yt, frac / n_avg, torch.mean(probs, dim=(0, 1)) / n_avg
 
@@ -715,13 +877,32 @@ def chunked_ce(
     return tot / torch.clamp(cnt, min=1.0)
 
 
+def _cache_placements(cfg: LMConfig, x: torch.Tensor, batch: int, seq: int) -> dict | None:
+    """The placements ``shard.lm_cache_spec`` gives a cache of ``seq``
+    positions over ``x``'s mesh: a layer's ``[B, S, kv, hd]`` (``"layer"``)
+    and ``"pos"``; None for a plain ``x``."""
+    if not isinstance(x, DTensor):
+        return None
+    mesh = x.device_mesh
+    specs = sh.lm_cache_spec(mesh, cfg, batch, seq)
+    shape = (cfg.n_layers, batch, seq, cfg.n_kv_heads, cfg.head_dim)
+    kv = sh.named(mesh, shape, specs["k"]).placements
+    return {"layer": tuple(Shard(p.dim - 1) if isinstance(p, Shard) else p for p in kv),
+            "pos": sh.named(mesh, (batch,), specs["pos"]).placements}
+
+
 @torch.no_grad()
 def prefill_step(cfg: LMConfig, params, tokens: torch.Tensor) -> tuple[torch.Tensor, dict]:
-    """Serving prefill: build the KV cache, return last-position logits."""
+    """Serving prefill: build the KV cache, return last-position logits.
+    On DTensors the cache comes back in ``shard.lm_cache_spec``'s placement
+    (the window's length where ``sliding_window`` trims it): each layer's
+    keys and values, replicated where the cache splits its sequence, are
+    cut to the shard's slice there, which moves nothing."""
     b, s = tokens.shape
     positions = _positions(tokens)
     x = lookup(params.embed.to(cfg.dtype), tokens)
     win = cfg.sliding_window
+    place = _cache_placements(cfg, x, b, min(s, win) if win is not None else s)
     ks, vs = [], []
     for lp in params.layers:
         a, (k, v) = attention(
@@ -731,12 +912,17 @@ def prefill_step(cfg: LMConfig, params, tokens: torch.Tensor) -> tuple[torch.Ten
         x = x + _ffn(cfg, lp, rmsnorm(x, lp.ln2, cfg.norm_eps))[0]
         if win is not None:
             k, v = k[:, -win:], v[:, -win:]
+        if place is not None:
+            k = k.redistribute(k.device_mesh, place["layer"])
+            v = v.redistribute(v.device_mesh, place["layer"])
         ks.append(k)
         vs.append(v)
     x = rmsnorm(x, params.ln_f, cfg.norm_eps)
     last_logits = x[:, -1] @ params.unembed.to(cfg.dtype)
-    cache = {"k": torch.stack(ks), "v": torch.stack(vs),
-             "pos": torch.full((b,), s, dtype=torch.int32, device=tokens.device)}
+    pos = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
+    if place is not None:
+        pos = ctx.as_dtensor(pos, x.device_mesh).redistribute(x.device_mesh, place["pos"])
+    cache = {"k": torch.stack(ks), "v": torch.stack(vs), "pos": pos}
     return last_logits, cache
 
 
@@ -757,12 +943,16 @@ def init_kv_cache(cfg: LMConfig, batch: int, seq: int, *, device=DEFAULT_DEVICE)
 def decode_step(
     cfg: LMConfig, params, cache: dict, tokens: torch.Tensor
 ) -> tuple[torch.Tensor, dict]:
-    """One-token decode: tokens [B, 1]; rolling cache for SWA."""
+    """One-token decode: tokens [B, 1]; rolling cache for SWA.  A cache
+    whose sequence is split across the mesh (``shard.lm_cache_spec``) is
+    attended over where it lies and rolled by :func:`_roll_split`; it keeps
+    its placements, as ``pos`` does."""
     positions = cache["pos"][:, None]  # [B, 1]
     x = lookup(params.embed.to(cfg.dtype), tokens)
     s_cache = cache["k"].shape[2]
     k_pos = positions - s_cache + torch.arange(
         s_cache, dtype=torch.int32, device=tokens.device)[None, :]
+    split = _split_dims(cache["k"], 2)
     k_c, v_c = [], []
     for lp, kc, vc in zip(params.layers, cache["k"], cache["v"]):
         a, (k_new, v_new) = attention(
@@ -776,12 +966,17 @@ def decode_step(
         )
         x = x + a
         x = x + _ffn(cfg, lp, rmsnorm(x, lp.ln2, cfg.norm_eps))[0]
-        # roll the cache: drop oldest position, append the new one
-        k_c.append(k_new[:, 1:])
-        v_c.append(v_new[:, 1:])
+        # roll the cache: drop oldest position, append the new one (a split
+        # cache after the loop, every layer at once)
+        k_c.append(k_new if split else k_new[:, 1:])
+        v_c.append(v_new if split else v_new[:, 1:])
     x = rmsnorm(x, params.ln_f, cfg.norm_eps)
     logits = x @ params.unembed.to(cfg.dtype)
-    new_cache = {"k": torch.stack(k_c), "v": torch.stack(v_c), "pos": cache["pos"] + 1}
+    if split:
+        k_out, v_out = _roll_split(cache["k"], cache["v"], torch.stack(k_c), torch.stack(v_c))
+    else:
+        k_out, v_out = torch.stack(k_c), torch.stack(v_c)
+    new_cache = {"k": k_out, "v": v_out, "pos": cache["pos"] + 1}
     return logits, new_cache
 
 

@@ -6,8 +6,9 @@ on the CPU, a two-replica ``AsyncServer`` on the card, the LM's train
 step, attention, decode and ``launch.train`` on the card against the CPU,
 and the MoE LMs' train step and dispatch, the GNNs' ``GNNArch.step`` and the
 recsys model's step, EmbeddingBag, retrieval and sharded step on
-the card against the CPU, and the machine probe's ``--fast`` sweep on the
-card.  A CUDA kernel has no CPU mode, so without a
+the card against the CPU, the LM serving steps on DTensor state over a
+1x1 mesh of the card against the plain steps, and the machine probe's
+``--fast`` sweep on the card.  A CUDA kernel has no CPU mode, so without a
 card these skip.  The file imports neither JAX nor the JAX package, so it
 runs where JAX is not installed:
 
@@ -830,6 +831,74 @@ def test_recsys_sharded_step_on_host_mesh_is_bit_equal(cuda_device):
                            else ms["loss"], m["loss"])
         for p, q in zip(model.parameters(), plain.parameters()):
             assert torch.equal(p.full_tensor(), q)
+    finally:
+        mesh_mod.release()
+
+
+@pytest.mark.parametrize("arch_id,batch", [("internlm2-1.8b", 4), ("mixtral-8x7b", 1)])
+def test_lm_sharded_serving_on_card_matches_plain(cuda_device, no_tf32, arch_id, batch):
+    """The serving steps on the 1x1 mesh over the card: the ``reduced()``
+    f32 parameters placed by ``state_shardings``, prefill ``batch`` x 16
+    (mixtral's 8-position window full) and three decode steps under the
+    rules, equal to the plain steps on the card within rtol 1e-5 (atol 1e-5
+    times the largest magnitude), ``pos`` exactly, the cache and ``pos``
+    in ``lm_cache_spec``'s placements after every step, on the card."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch import configs
+    from repro_torch.configs import base
+    from repro_torch.distributed import shard as sh
+    from repro_torch.distributed.ctx import logical_axis_rules
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import transformer as tr
+
+    cfg = configs.get(arch_id).reduced()
+    arch = base.LMArch(cfg)
+    seq, steps = 16, 3
+    cells = ([base.Cell("prefill", "prefill", batch=batch, seq=seq)]
+             + [base.Cell("decode", "decode", batch=batch, seq=seq)] * steps)
+    rng = np.random.default_rng(0)
+    toks = [torch.as_tensor(rng.integers(0, cfg.vocab, (batch, seq if i == 0 else 1),
+                                         dtype=np.int32), device=cuda_device)
+            for i in range(len(cells))]
+
+    def run(params, place=None):
+        out, cache = [], None
+        for cell, t in zip(cells, toks):
+            if place is not None:
+                t = place(t, arch.input_shardings(mesh, cell)["tokens"])
+            logits, cache = (tr.prefill_step(cfg, params, t) if cell.kind == "prefill"
+                             else tr.decode_step(cfg, params, cache, t))
+            out.append((logits, cache))
+        return out
+
+    def full(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
+    try:
+        mesh = mesh_mod.make_host_mesh()
+        want = run(tr.init_params(cfg, 0, device=cuda_device))
+        s_cache = min(seq, cfg.sliding_window or seq)
+        specs = sh.lm_cache_spec(mesh, cfg, batch, s_cache)
+        kv = (cfg.n_layers, batch, s_cache, cfg.n_kv_heads, cfg.head_dim)
+        want_pl = {k: sh.named(mesh, (batch,) if k == "pos" else kv, specs[k]).placements
+                   for k in ("k", "v", "pos")}
+
+        def place(t, ns):
+            return distribute_tensor(t, mesh, ns.placements)
+
+        params = sh.place(tr.init_params(cfg, 0, device=cuda_device),
+                          arch.state_shardings(mesh, cells[1])["params"], place)
+        with logical_axis_rules(mesh), implicit_replication():
+            got = run(params, place)
+        for i, ((gl, gc), (wl, wc)) in enumerate(zip(got, want)):
+            assert {k: gc[k].placements for k in want_pl} == want_pl, i
+            assert gc["k"].to_local().device.type == "cuda"
+            assert torch.equal(full(gc["pos"]), wc["pos"])
+            for a, b in ((gl, wl), (gc["k"], wc["k"]), (gc["v"], wc["v"])):
+                torch.testing.assert_close(full(a), b, rtol=1e-5,
+                                           atol=1e-5 * float(b.abs().max()))
     finally:
         mesh_mod.release()
 

@@ -60,7 +60,21 @@ What is held, and at what tolerance:
   dispatch of the groups that rank holds;
 * dcn-v2's train step with the embedding table's rows sharded, so that
   ``ctx.lookup`` runs shard-local: loss and gradient norm rtol 1e-5,
-  gradients as the LM's.
+  gradients as the LM's;
+* the serving steps of internlm2, qwen3, olmoe and mixtral (``reduced()``,
+  f32; mixtral's 8-position window, so each decode step's roll crosses a
+  shard boundary): ``prefill_step`` on ``LM_BATCH x LM_SEQ`` tokens and
+  three ``decode_step``s, on the state ``LMArch.state_shardings`` places,
+  against the plain steps under the same rules: each step's logits and
+  the whole cache within rtol 1e-5 (atol 1e-5 times the largest
+  magnitude, for elements near zero), ``pos`` exactly, and the cache's
+  and ``pos``'s placements after prefill and after every step equal to
+  ``lm_cache_spec``'s (batch over ``data``, sequence over ``model``); and
+  on the 2 x 2 mesh at batch 1 for internlm2 and mixtral, the sequence
+  over ``(data, model)`` in 4 shards (the MoE's expert weights kept
+  where they lie, ``_moe_sharded`` without gradients);
+* one ``block_dense`` sweep (``solve_dense``) over the operands
+  ``DualsimArch.place`` puts on the mesh: chi bit for bit.
 """
 from __future__ import annotations
 
@@ -97,6 +111,12 @@ BATCH_QUERIES = ("{ ?a p0 ?b . ?b p1 ?c }",
 # shard's two query heads share it: the replicated, sliced kv branch
 LM_ARCHS = ("internlm2-1.8b", "qwen3-8b", "olmoe-1b-7b")
 LM_BATCH, LM_SEQ = 4, 16
+# mixtral's reduced() config has an 8-position window: the prefill cache
+# holds 8 positions, 4 or 2 a shard, so every decode step's roll moves a
+# position across a shard boundary
+SERVE_ARCHS = LM_ARCHS + ("mixtral-8x7b",)
+SERVE_ONE_ARCHS = ("internlm2-1.8b", "mixtral-8x7b")  # batch 1: the sequence over (data, model)
+DECODE_STEPS = 3
 RECSYS_BATCH = 16
 RECSYS_VOCAB = (96, 32, 52)  # 180 table rows: every mesh here divides them
 
@@ -412,6 +432,94 @@ def _lm(mesh) -> dict:
     return out
 
 
+def _lm_serve(mesh, archs, batch: int) -> dict:
+    """Each LM's ``reduced()`` f32 ``prefill_step`` on ``batch x LM_SEQ``
+    tokens, then ``DECODE_STEPS`` ``decode_step``s, on the plain parameters
+    and on those placed by ``LMArch.state_shardings`` (the tokens by
+    ``input_shardings``), both under the logical-axis rules (so the MoE
+    blocks its tokens into the same groups): after each step the logits,
+    the cache and ``pos`` read back whole, and the cache's placements
+    beside those ``lm_cache_spec`` gives."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch import configs
+    from repro_torch.configs import base
+    from repro_torch.distributed import shard as sh
+    from repro_torch.distributed.ctx import logical_axis_rules
+    from repro_torch.models import transformer as tr
+
+    def full(t):
+        return (t.full_tensor() if isinstance(t, DTensor) else t).numpy()
+
+    out = {}
+    for arch_id in archs:
+        cfg = configs.get(arch_id).reduced()
+        arch = base.LMArch(cfg)
+        cells = [base.Cell("prefill", "prefill", batch=batch, seq=LM_SEQ)]
+        cells += [base.Cell("decode", "decode", batch=batch, seq=LM_SEQ)] * DECODE_STEPS
+        rng = np.random.default_rng(SEED)
+        tokens = [torch.as_tensor(rng.integers(0, cfg.vocab, (batch, c.seq if c.kind == "prefill"
+                                                               else 1), dtype=np.int32))
+                  for c in cells]
+        plain = tr.init_params(cfg, SEED, device="cpu")
+        placed = sh.place(copy.deepcopy(plain), arch.state_shardings(mesh, cells[1])["params"],
+                          lambda t, ns: distribute_tensor(t.clone(), mesh, ns.placements))
+        s_cache = min(LM_SEQ, cfg.sliding_window or LM_SEQ)
+        specs = sh.lm_cache_spec(mesh, cfg, batch, s_cache)
+        shapes = {"k": (cfg.n_layers, batch, s_cache, cfg.n_kv_heads, cfg.head_dim),
+                  "pos": (batch,)}
+        res = {"want": {k: str(sh.named(mesh, shapes["pos" if k == "pos" else "k"],
+                                        specs[k]).placements) for k in ("k", "v", "pos")}}
+        for name, params in (("plain", plain), ("sharded", placed)):
+            sharded = name == "sharded"
+            implicit = implicit_replication() if sharded else contextlib.nullcontext()
+            steps, cache = [], None
+            with logical_axis_rules(mesh), implicit:
+                for cell, t in zip(cells, tokens):
+                    if sharded:
+                        t = sh.place({"tokens": t}, arch.input_shardings(mesh, cell),
+                                     lambda x, ns: distribute_tensor(x, mesh, ns.placements))
+                        t = t["tokens"]
+                    if cell.kind == "prefill":
+                        logits, cache = tr.prefill_step(cfg, params, t)
+                    else:
+                        logits, cache = tr.decode_step(cfg, params, cache, t)
+                    steps.append(dict(
+                        logits=full(logits), **{k: full(cache[k]) for k in ("k", "v", "pos")},
+                        placements={k: str(getattr(cache[k], "placements", None))
+                                    for k in ("k", "v", "pos")}))
+            res[name] = steps
+        out[arch_id] = res
+    return out
+
+
+def _block_dense(mesh) -> dict:
+    """One sweep of the block_dense cell (``DualsimArch.step``, a dense f32
+    product a operator), plain and over the operands ``DualsimArch.place``
+    puts on the mesh (chi's columns over ``model``, the adjacency's rows
+    over ``data`` and its columns over ``model``)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch import configs
+    from repro_torch.core import dualsim, soi, sparql
+    from repro_torch.data import synth
+    from repro_torch.distributed.ctx import logical_axis_rules
+
+    arch = configs.get("dualsim-lubm")
+    cell = arch.cells()["block_dense"]
+    g = synth.random_graph(n_nodes=256, n_labels=2, n_edges=1024, seed=SEED)
+    c = soi.compile_soi(soi.build_soi(sparql.parse(QUERY)), g)
+    ops = dualsim.make_dense_operands(c, g, device="cpu")
+    step = arch.step(cell)
+    chi, _ = step(ops, {})
+    placed = arch.place(ops, cell, mesh)
+    with logical_axis_rules(mesh), implicit_replication():
+        chi_sh, _ = step(placed, {})
+    return dict(plain=_words(chi), sharded=_words(chi_sh), live=int(chi.sum()),
+                n=g.n_nodes, v=int(chi.shape[0]), adj=str(placed.adj_dense.placements))
+
+
 def _recsys(mesh) -> dict:
     """dcn-v2's ``reduced()`` config with ``RECSYS_VOCAB`` (so every mesh
     here splits the table's rows and ``ctx.lookup`` runs shard-local): one
@@ -478,10 +586,13 @@ def _cases(world: int) -> dict:
         "q_sparse": _q_sparse,
         "q_partitioned": _q_partitioned,
         "lm": lambda m: _lm(_with_model(m)),
+        "lm_serve": lambda m: _lm_serve(_with_model(m), SERVE_ARCHS, LM_BATCH),
         "recsys": lambda m: _recsys(_with_model(m)),
+        "block_dense": _block_dense,
     }
     if world == 4:
         cases["q_parallel"] = _q_parallel
+        cases["lm_serve_one"] = lambda m: _lm_serve(m, SERVE_ONE_ARCHS, 1)
     if world == 2:
         cases.update({
             "no_chi_spec": _no_chi_spec,
@@ -731,3 +842,58 @@ def test_recsys_sharded_step_equals_plain_step(groups, world):
     for k, (a, b) in enumerate(zip(sharded["grads"], plain["grads"])):
         np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4 * np.abs(b).max(),
                                    err_msg=f"gradient {k}")
+
+
+def _serve_cases(groups, world, case, arch_id):
+    res = groups[world][case][arch_id]
+    assert len(res["plain"]) == len(res["sharded"]) == 1 + DECODE_STEPS
+    return res
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("arch_id", SERVE_ARCHS)
+def test_lm_sharded_serving_equals_plain_serving(groups, world, arch_id):
+    """Prefill and three decode steps on state placed as the serving cells
+    place it: the logits and the cache of every step as the plain steps',
+    ``pos`` exactly, and the cache in ``lm_cache_spec``'s placement after
+    prefill and after every step (batch over ``data``, sequence over
+    ``model``)."""
+    res = _serve_cases(groups, world, "lm_serve", arch_id)
+    assert "Shard(dim=2)" in res["want"]["k"]
+    for i, (plain, sharded) in enumerate(zip(res["plain"], res["sharded"])):
+        assert sharded["placements"] == res["want"], i
+        np.testing.assert_array_equal(sharded["pos"], plain["pos"], err_msg=f"step {i}")
+        for key in ("logits", "k", "v"):
+            want = plain[key]
+            np.testing.assert_allclose(sharded[key], want, rtol=1e-5,
+                                       atol=1e-5 * np.abs(want).max(),
+                                       err_msg=f"step {i} {key}")
+
+
+@pytest.mark.parametrize("arch_id", SERVE_ONE_ARCHS)
+def test_lm_sharded_serving_batch_one_splits_the_sequence_four_ways(groups, arch_id):
+    """Batch 1 on the 2 x 2 mesh: the cache's sequence split over ``(data,
+    model)`` into 4 shards (mixtral's 8-position window, 2 a shard), each
+    decode step's roll crossing both mesh dims; held as above."""
+    res = _serve_cases(groups, 4, "lm_serve_one", arch_id)
+    assert res["want"]["k"] == "(Shard(dim=2), Shard(dim=2))"
+    assert res["want"]["pos"] == "(Replicate(), Replicate())"
+    for i, (plain, sharded) in enumerate(zip(res["plain"], res["sharded"])):
+        assert sharded["placements"] == res["want"], i
+        np.testing.assert_array_equal(sharded["pos"], plain["pos"], err_msg=f"step {i}")
+        for key in ("logits", "k", "v"):
+            want = plain[key]
+            np.testing.assert_allclose(sharded[key], want, rtol=1e-5,
+                                       atol=1e-5 * np.abs(want).max(),
+                                       err_msg=f"step {i} {key}")
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_block_dense_sweep_sharded_equals_one_rank(groups, world):
+    """The dense sweep over ``DualsimArch.place``'s operands: chi bit for
+    bit (the adjacency's rows over ``data``, and on the 2 x 2 mesh its
+    columns and chi's over ``model``)."""
+    got = groups[world]["block_dense"]
+    assert 0 < got["live"] < got["v"] * got["n"]
+    assert got["adj"] == ("(Shard(dim=1),)" if world == 2 else "(Shard(dim=1), Shard(dim=2))")
+    np.testing.assert_array_equal(got["sharded"], got["plain"])
