@@ -39,6 +39,37 @@ operators, W = devices in the mesh):
 Communication terms enter only when ``n_devices > 1``: on one device the
 model reduces to the single-device model exactly.
 
+On a calibrated card (a model in seconds, ``backend`` not ``"cpu"``) the
+three dense-tier engines are priced by the work the port's own kernels do
+instead (B = set bits of the compiled SOI's Eq.-13 init ``c.init``, nw =
+ceil(n / 32)), each sweep also paying one ``c_dispatch`` for its tail:
+the copy inequalities and the convergence read to the host, a plain-torch
+chain run once a sweep by every dense-tier solver:
+
+* ``packed_fused`` — ``M * (B * nw * c_packed_fused + fused_launch) +
+  c_dispatch``: K2 (``kernels/bitmm/csrc/bitmm.cu``) ORs one staged row
+  word for each set frontier bit and column word and never reads a row no
+  variable selects.  chi only shrinks from ``c.init``, so this bounds
+  every sweep and is exact on the first.
+* ``packed`` — ``M * (B * nw * c_packed + packed_launch + c_dispatch) +
+  c_dispatch``: the same work at the packed engine's own step rate (K3 on
+  a bool frontier, then the unpacked AND chain of ``dualsim._fixpoint``),
+  plus that chain's plain-torch dispatch per operator, as the
+  segmented-OR sweep pays it.
+* ``dense`` — ``M * dense_step + c_dispatch``, with :func:`dense_step` =
+  ``V * n * n * c_dense + DENSE_PLANE_BYTES * n * n * c_segor_byte``: the
+  product's elements, plus the operator's bool plane turned into f32 and
+  read back by the product each sweep (:data:`DENSE_PLANE_BYTES` a plane
+  element) at the stream rate, a cost that does not shrink with V.
+
+The card also lets the packed engines' stacked operands take a
+:data:`ADJ_CACHE_STACKS`-th of its memory where that exceeds
+:data:`PACKED_MAX_BYTES` (:func:`packed_max_bytes`): the engine's
+adjacency cache keeps that many stacks, so a full cache of the largest
+still fits.  The probe (``launch/roofline.py``) fits the rates and the
+launch on the card's own kernels; the edge engines, the other gates, the
+CPU's prices and the hand-tuned model's stay the reference's.
+
 ``backend`` is the device type the plan runs on; as in the JAX package,
 ``"cpu"`` takes the CPU prices and any other backend (the port's
 ``"cuda"``) the accelerator's.  Feasibility is a HARD gate on graph shape,
@@ -52,6 +83,9 @@ package's constants in arbitrary units) or :meth:`CostModel.from_spec`
 from __future__ import annotations
 
 import dataclasses
+import functools
+
+import numpy as np
 
 from repro_torch.core import dualsim
 from repro_torch.core.graph import DENSE_ADJ_MAX_BYTES, Graph
@@ -76,6 +110,13 @@ C_COMM = 8.0  # per byte of cross-device collective traffic
 JACOBI_SWEEP_FACTOR = 2.0  # Jacobi needs ~2x the sweeps of Gauss–Seidel
 DENSE_MAX_BYTES = 2 << 30  # stacked bool[M, n, n] adjacency budget
 PACKED_MAX_BYTES = 2 << 30
+# stacked operands the engine's adjacency cache keeps (engine.py); on a
+# calibrated card a packed stack may take this share of the card's memory
+ADJ_CACHE_STACKS = 16
+# bytes a dense-engine plane element moves a sweep on a calibrated card:
+# the bool plane read (1), its f32 copy written (4) and read by the
+# product (4)
+DENSE_PLANE_BYTES = 9.0
 # any single [n, n] plane past this cannot be BUILT (graph.dense_adjacency
 # raises MemoryError) — shared with the data layer so the model's hard gate
 # and the constructor's guard can never disagree
@@ -101,6 +142,39 @@ def dense_tier_feasible(n: int) -> bool:
     operand is 32x smaller.
     """
     return n * n <= DENSE_TIER_MAX_BYTES
+
+
+def _card_memory_bytes() -> int | None:
+    """The current card's memory in bytes, or None without a card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return None
+    return _device_memory_bytes(torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=None)
+def _device_memory_bytes(index: int) -> int:
+    import torch
+
+    return int(torch.cuda.get_device_properties(index).total_memory)
+
+
+def packed_max_bytes(card: bool) -> int:
+    """The packed engines' stacked-operand budget: :data:`PACKED_MAX_BYTES`,
+    or on a calibrated card (``card``) with a card present an
+    :data:`ADJ_CACHE_STACKS`-th of its memory where that is larger."""
+    memory = _card_memory_bytes() if card else None
+    if memory is None:
+        return PACKED_MAX_BYTES
+    return max(PACKED_MAX_BYTES, memory // ADJ_CACHE_STACKS)
+
+
+def dense_step(v: int, n: int, model: CostModel) -> float:
+    """One dense-engine operator on a calibrated card: the ``[V, n] x
+    [n, n]`` product's elements, and the bool plane's f32 conversion and
+    read, :data:`DENSE_PLANE_BYTES` a plane element at the stream rate."""
+    return v * n * n * model.c_dense + DENSE_PLANE_BYTES * n * n * model.c_segor_byte
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,7 +216,9 @@ class CostModel:
         ``patch_cost_per_edge = 64 / stream``, ``c_comm`` the reciprocal
         of the probed collective rate (``4 / stream`` below 2 devices,
         where no collective is probed), the measured dispatch overhead and
-        the measured cold-build latency."""
+        the measured cold-build latency.  On a card the spec's rates are
+        the port's own kernels' (``launch/roofline.py``), which
+        :func:`estimate_costs` prices by set frontier bits."""
         stream = spec.stream_bytes_per_s
         cpu = spec.backend == "cpu"
         shipping = 1.0 / spec.packed_words_per_s
@@ -269,7 +345,8 @@ def estimate_costs(
     tier_ok = m == 0 or dense_tier_feasible(n)
     dense_bytes = m * n * n
     packed_bytes = m * n * n_words * 4
-    packed_ok = tier_ok and packed_bytes <= PACKED_MAX_BYTES
+    card = mdl.unit == "s" and not cpu
+    packed_ok = tier_ok and packed_bytes <= packed_max_bytes(card)
     c_packed = mdl.c_packed_interpret if cpu else mdl.c_packed
     c_fused = mdl.c_packed_fused_cpu if cpu else mdl.c_packed_fused
     sweep = segor_sweep_cost(v, n, m, e, mdl)
@@ -279,19 +356,24 @@ def estimate_costs(
     sparse_comm = m * v * (n / 8.0) * mdl.c_comm if multi else 0.0
     bcast_comm = v * (n / 8.0) * mdl.c_comm if multi else 0.0
     inf = float("inf")
+    if card and tier_ok:
+        # the port's kernels' work and each sweep's tail (module docstring)
+        words = int(np.count_nonzero(c.init)) * n_words
+        tail = mdl.c_dispatch
+        dense = m * dense_step(v, n, mdl) + tail
+        packed = m * (words * c_packed + mdl.packed_launch + mdl.c_dispatch) + tail
+        fused = m * (words * c_fused + mdl.fused_launch) + tail
+    else:
+        # the reference's: every variable's row over every column word
+        dense = v * n * n * m * mdl.c_dense
+        packed = v * n * n_words * m * c_packed + m * mdl.packed_launch
+        fused = v * n * n_words * m * c_fused + m * mdl.fused_launch
     return {
         "dense": (
-            v * n * n * m * mdl.c_dense
-            if tier_ok and dense_bytes <= DENSE_MAX_BYTES else inf
+            dense if tier_ok and dense_bytes <= DENSE_MAX_BYTES else inf
         ),
-        "packed": (
-            v * n * n_words * m * c_packed + m * mdl.packed_launch
-            if packed_ok else inf
-        ),
-        "packed_fused": (
-            v * n * n_words * m * c_fused + m * mdl.fused_launch
-            if packed_ok else inf
-        ),
+        "packed": packed if packed_ok else inf,
+        "packed_fused": fused if packed_ok else inf,
         "sparse": sweep + sparse_comm,
         "jacobi_packed": JACOBI_SWEEP_FACTOR * (sweep + bcast_comm),
         # no mesh: pure block-padding overhead over jacobi_packed

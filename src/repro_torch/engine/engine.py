@@ -180,8 +180,9 @@ class Engine:
         )
         self.cache = PlanCache(cache_capacity)
         # (engine, mats) -> device adjacency, shared across plans; bounded so
-        # a churning template mix cannot pin unbounded device memory
-        self._adj_cache = BoundedDict(capacity=16)
+        # a churning template mix cannot pin unbounded device memory (the
+        # cost model sizes a card's packed budget by the same count)
+        self._adj_cache = BoundedDict(capacity=cost_mod.ADJ_CACHE_STACKS)
         if self._source is not None:
             self.fingerprint = self._source.fingerprint
             self._version = self._source.version

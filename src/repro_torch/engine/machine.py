@@ -11,6 +11,14 @@ CostModel.from_spec` turns those ceilings into the per-engine cost
 constants, replacing the hand-tuned defaults that encode one developer
 machine.
 
+The fields and their JSON are the reference's.  On a card three of them
+measure the port's own kernels instead: ``fused_words_per_s`` and
+``kernel_launch_s`` are the rate and intercept of K2's fit (``bitmm_apply``
+timed across the dense tier's shapes, per OR'd word: a set frontier bit
+times a column word), and ``packed_words_per_s`` the rate of the packed
+engine's step fitted alike (:func:`repro_torch.launch.roofline.
+card_bitop_rows`).
+
 Specs are persisted as versioned JSON under ``results/machine/`` keyed by a
 :func:`machine_fingerprint` (backend + device kind + host shape), so CI
 runners and dev machines each calibrate against their own measurements and
@@ -36,6 +44,11 @@ import platform
 import tempfile
 
 SPEC_VERSION = 1
+# What a card's spec measures: 2 since the probe fits the port's own
+# kernels (K2's launch and rate by set frontier bits, the packed engine's
+# step; launch/roofline.py).  Hashed into a card's fingerprint, so a spec
+# saved under an earlier meaning is never looked up by default.
+CARD_PRICING_VERSION = 2
 ENV_VAR = "REPRO_MACHINE_SPEC"
 SPEC_DIR = os.path.normpath(
     os.path.join(
@@ -60,9 +73,13 @@ class MachineSpec:
     n_devices: int  # visible device count at probe time
     stream_bytes_per_s: float  # sustained streaming bandwidth (uint32 traffic)
     dense_elems_per_s: float  # dense f32-matmul boolean-product elements/s
+    # on a card: the packed engine's step (K3 + its unpacked AND), fitted
+    # per OR'd word (a set frontier bit and column word)
     packed_words_per_s: float  # bitmm_apply words/s, shipping lowering
     packed_words_per_s_xla: float  # bitmm_apply words/s, word-wise XLA lowering
+    # on a card: K2's rate, fitted per OR'd word
     fused_words_per_s: float  # fused-path words/s, shipping lowering
+    # on a card: the intercept of K2's fit
     kernel_launch_s: float  # per-call overhead of the shipping kernel path
     dispatch_s: float  # per-call overhead of a compiled XLA op
     trace_s: float  # jit trace+compile of a representative packed fixpoint
@@ -86,19 +103,20 @@ def machine_fingerprint(backend: str = "cuda") -> str:
     machine's calibration or perf-gate history: an unseen fingerprint
     bootstraps a fresh trajectory instead of cross-comparing.  The
     ``torch-`` prefix keeps the port off specs that the JAX package's probe
-    calibrated for its own lowerings on the same host.
+    calibrated for its own lowerings on the same host.  A card's hashed
+    part also folds in :data:`CARD_PRICING_VERSION`.
     """
     import torch
 
+    hashed = platform.node()
     if backend == "cuda" and torch.cuda.is_available():
         devices = list(range(torch.cuda.device_count()))
         kind = torch.cuda.get_device_name(0)
+        hashed += f"|pricing-{CARD_PRICING_VERSION}"
     else:
         devices = [0]
         kind = "cpu"
-    node = hashlib.blake2b(
-        platform.node().encode(), digest_size=4
-    ).hexdigest()
+    node = hashlib.blake2b(hashed.encode(), digest_size=4).hexdigest()
     raw = "__".join(
         str(p)
         for p in (

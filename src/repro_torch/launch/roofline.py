@@ -1,28 +1,38 @@
 """Berkeley-ERT-style machine probe of the port → ``MachineSpec`` (DESIGN.md 13.1).
 
 The torch twin of the JAX package's ``benchmarks/roofline.py``: the same
-sweeps at the same sizes, filling the same :class:`MachineSpec` fields
-with the same meaning, so :func:`repro_torch.engine.cost.CostModel.from_spec`
-derives the cost model's constants from a card's own measurements instead
-of the hand-tuned fallback.  Four sweeps, each a micro-kernel the engines
-actually execute, best-of-N timed like ERT:
+sweeps at the same sizes on the CPU, filling the same :class:`MachineSpec`
+fields, so :func:`repro_torch.engine.cost.CostModel.from_spec` derives the
+cost model's constants from a machine's own measurements instead of the
+hand-tuned fallback.  On a card the bit-op and dense sweeps time the
+port's own kernels at the dense tier's real shapes instead, since they do
+other work than the reference's Pallas kernels.  Four sweeps, each a
+micro-kernel the engines actually execute, best-of-N timed like ERT:
 
 * **stream** — sustained memory bandwidth: an ``int32`` XOR pass (8 bytes
   moved a word) over working sets from cache-resident to HBM-resident (the
   segmented-OR sweep is this workload: packed chi planes and edge id
   streams).  Peak across sizes is the spec's ``stream_bytes_per_s``.
-* **bitop** — ``bitmm_apply`` word throughput at increasing ``n``, under
-  both lowerings the port has: ``shipping``, what plans run
-  (:func:`repro_torch.kernels.bitmm.ops.bitmm_apply`: the CUDA kernel on a
-  card, its plain version on the CPU, which has no interpreter), and
+* **bitop** — ``bitmm_apply`` word throughput, under both lowerings the
+  port has: ``shipping``, what plans run
+  (:func:`repro_torch.kernels.bitmm.ops.bitmm_apply`: the CUDA kernel K2 on
+  a card, its plain version on the CPU, which has no interpreter), and
   ``xla``, the word-wise plain version
   (:func:`repro_torch.kernels.bitmm.ref.bitmm_apply_ref`) on the same
-  device.  The cheapest call gives the per-call overheads
-  (``kernel_launch_s`` / ``dispatch_s``), the best words/seconds the
-  sustained rate.
+  device.  On the CPU, as in the reference, the cheapest call gives the
+  per-call overheads (``kernel_launch_s`` / ``dispatch_s``) and the best
+  words/seconds the sustained rate.  On a card (:func:`card_bitop_rows`)
+  K2 and the packed engine's step are timed at n up to 46,200, V from 3
+  to 48 and frontier densities from 0.02 to 0.5, and each is fitted to
+  ``seconds = launch + popcount(chi) * nw / rate``: K2's fit gives
+  ``kernel_launch_s`` and ``fused_words_per_s``, the packed step's
+  ``packed_words_per_s``; the ``xla`` rows and ``dispatch_s`` stay the
+  reference's.
 * **dense** — the dense engine's own boolean product, ``(x.to(f32) @
   a.to(f32)) > 0``, under whatever TF32 setting the caller runs the engine
-  with (the probe changes no flag), giving ``dense_elems_per_s``.
+  with (the probe changes no flag), giving ``dense_elems_per_s``; on a
+  card at V from 3 to 48 and n up to 16,384, the product alone timed too
+  (:func:`card_dense_rows`).
 * **collective** — on two or more cards only: the partitioned engine's
   one cross-device transfer, the packed frontier's column shards copied
   onto every :func:`repro_torch.distributed.ctx.node_mesh` device, giving
@@ -107,27 +117,136 @@ def stream_probe(fast: bool = False, repeats: int | None = None,
     return dict(rows=rows, bytes_per_s=max(r["bytes_per_s"] for r in rows))
 
 
+# The card's bit-op rows (K2, and the packed engine's step): n from the
+# reference probe's largest size to the dense tier's largest graph
+# (46,200 nodes), V from one small query's variables to the serving
+# microbatch's 48, and frontier densities from sparse to half set.  The
+# work unit is one OR'd word a set frontier bit and column word.
+CARD_BITOP_NS = (4096, 16384, 46200)
+CARD_BITOP_VS = (3, 16, 48)
+CARD_DENSITIES = (0.02, 0.1, 0.5)
+# the dense engine's operator step at V from 3 to 48 and n up to 16,384
+CARD_DENSE_NS = (4096, 8192, 16384)
+CARD_DENSE_VS = (3, 16, 48)
+# edges a node of the probe's random operands (a row's cost depends on
+# which rows the frontier selects, not on the bits a row holds)
+EDGES_PER_NODE = 8
+
+
+def _random_edges(n: int, gen: torch.Generator, dev: torch.device):
+    """``EDGES_PER_NODE * n`` random (source, destination) pairs on ``dev``."""
+    e = EDGES_PER_NODE * n
+    return (torch.randint(0, n, (e,), generator=gen, device=dev),
+            torch.randint(0, n, (e,), generator=gen, device=dev))
+
+
+def packed_operand(n: int, gen: torch.Generator, dev: torch.device) -> torch.Tensor:
+    """``int32 [n, nw]`` packed adjacency of a random edge list, packed on
+    ``dev`` as ``core/graph.py::Graph.packed_adjacency`` packs on the host:
+    the unique (row, column) cells, then the distinct bits of each word
+    combined (summed in ``int64``, which is their OR) and stored as the
+    ``int32`` bit-view.  No ``[n, n]`` plane is made."""
+    src, dst = _random_edges(n, gen, dev)
+    cell = torch.unique(src * n + dst)
+    rows, cols = cell // n, cell % n
+    nw = bitops.packed_width(n)
+    words = torch.zeros(n * nw, dtype=torch.int64, device=dev)
+    words.index_add_(0, rows * nw + (cols >> 5),
+                     torch.bitwise_left_shift(torch.ones_like(cols), cols & 31))
+    words = torch.where(words >= 1 << 31, words - (1 << 32), words)
+    return words.to(torch.int32).reshape(n, nw)
+
+
+def fit_launch_rate(rows: list[dict]) -> tuple[float, float]:
+    """``(launch, rate)`` of ``seconds = launch + work / rate`` over the
+    rows, least squares on each row's relative residual (so the
+    launch-bound rows weigh as much as the work-bound ones); ``launch``
+    is held at 0 where the free fit puts it below, and ``rate`` falls back
+    to the best row's ``work / seconds`` where no positive slope fits."""
+    work = np.array([r["work"] for r in rows], dtype=np.float64)
+    t = np.array([r["seconds"] for r in rows], dtype=np.float64)
+    ones = np.ones_like(t)
+    (launch, per_work), *_ = np.linalg.lstsq(
+        np.stack([1.0 / t, work / t], 1), ones, rcond=None)
+    if launch < 0:
+        launch = 0.0
+        (per_work,), *_ = np.linalg.lstsq((work / t)[:, None], ones, rcond=None)
+    rate = 1.0 / per_work if per_work > 0 else float(np.max(work / t))
+    return float(launch), float(rate)
+
+
+def _fitted(rows: list[dict]) -> dict:
+    """The rows with each one's fitted seconds, and the fit."""
+    launch, rate = fit_launch_rate(rows)
+    for r in rows:
+        r["fit_seconds"] = launch + r["work"] / rate
+    return dict(rows=rows, launch_s=launch, words_per_s=rate)
+
+
+def card_bitop_rows(dev: torch.device, fast: bool, repeats: int) -> dict:
+    """The card's rows: K2 (``bitmm_ops.bitmm_apply``, what the fused
+    engine runs per operator) and the packed engine's per-operator step
+    (K3 on a bool frontier, then the unpacked AND of ``solve_packed``'s
+    ``_fixpoint``), each at every (n, V, density), each fitted to
+    ``seconds = launch + work / rate`` with ``work = popcount(chi) * nw``."""
+    from types import SimpleNamespace
+
+    from repro_torch.core import dualsim
+
+    ns = CARD_BITOP_NS[::2] if fast else CARD_BITOP_NS
+    vs = CARD_BITOP_VS[::2] if fast else CARD_BITOP_VS
+    densities = CARD_DENSITIES[::2] if fast else CARD_DENSITIES
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    fused, packed = [], []
+    for n in ns:
+        nw = bitops.packed_width(n)
+        a = packed_operand(n, gen, dev)
+        for v in vs:
+            flags = (torch.rand((v, v), generator=gen, device=dev) < 0.5).to(torch.int32)
+            # every variable under one inequality: l <= (l + 1) mod V
+            ops = SimpleNamespace(
+                mat_rhs=[torch.arange(v, device=dev)],
+                mat_table=[((torch.arange(v, device=dev) + 1) % v)[:, None]])
+            for d in densities:
+                x = torch.rand((v, n), generator=gen, device=dev) < d
+                chi = bitops.pack(x)
+                row = dict(n=n, v=v, density=d, bits=int(x.sum()))
+                row["work"] = row["bits"] * nw
+                t = _best_s(lambda: bitmm_ops.bitmm_apply(chi, a, flags), repeats, dev)
+                fused.append(dict(row, seconds=t))
+                t = _best_s(lambda: dualsim._apply_mat(x, bitmm_ops.bitmm(x, a), 0, ops),
+                            repeats, dev)
+                packed.append(dict(row, seconds=t))
+        del a
+    return dict(fused=_fitted(fused), packed=_fitted(packed))
+
+
 def bitop_probe(backend: str = "cuda", fast: bool = False,
                 repeats: int | None = None) -> dict:
     """``bitmm_apply`` word throughput + per-call overheads, both lowerings.
 
-    Work per call is ``V * n * n/32`` word-ops (every output word ORs over
-    all ``n`` adjacency rows).  ``shipping`` is what plans run on this
-    backend (the CUDA kernel on a card, its plain version on the CPU);
-    ``xla`` is the word-wise plain version on the same device.  The
-    cheapest call bounds the per-call overhead; the best words/seconds
-    across sizes is the sustained rate — max/min extraction, no launch
-    subtraction, as in the reference.
+    ``shipping`` is what plans run on this backend (the CUDA kernel on a
+    card, its plain version on the CPU); ``xla`` is the word-wise plain
+    version on the same device.  On the CPU, as in the reference, work per
+    call is ``V * n * n/32`` word-ops (every output word ORs over all ``n``
+    adjacency rows), the cheapest call bounds the per-call overhead and
+    the best words/seconds across sizes is the sustained rate — max/min
+    extraction, no launch subtraction.
+
+    On a card ``shipping`` is instead the fit of :func:`card_bitop_rows`:
+    K2's work follows the set frontier bits (rows no variable selects are
+    never read), so its rows span the dense tier's shapes and are priced
+    by ``popcount(chi) * nw``; ``launch_s`` is the fit's intercept and
+    ``words_per_s`` its rate.  ``packed`` is the packed engine's step,
+    fitted alike.  The ``xla`` rows stay the reference's on every backend.
     """
     dev = resolve_device(backend)
     repeats = repeats or (3 if fast else 5)
     v = 8
     rng = np.random.default_rng(1)
-    cpu = dev.type == "cpu"
-    ship_ns = [64, 256, 1024] if cpu else [64, 1024, 4096]
+    ship_ns = [64, 512] if fast else [64, 256, 1024]
     xla_ns = [64, 1024, 2048] if fast else [64, 1024, 4096]
-    if fast and cpu:
-        ship_ns = [64, 512]
 
     def measure(ns, run):
         rows = []
@@ -142,17 +261,60 @@ def bitop_probe(backend: str = "cuda", fast: bool = False,
         words_per_s = max(r["words"] / r["seconds"] for r in rows)
         return dict(rows=rows, overhead_s=overhead, words_per_s=words_per_s)
 
-    ship = measure(ship_ns, bitmm_ops.bitmm_apply)
+    if dev.type == "cpu":
+        ship = measure(ship_ns, bitmm_ops.bitmm_apply)
+        xla = measure(xla_ns, bitmm_ref.bitmm_apply_ref)
+        return dict(shipping=ship, xla=xla)
+    card = card_bitop_rows(dev, fast, repeats)
     xla = measure(xla_ns, bitmm_ref.bitmm_apply_ref)
-    return dict(shipping=ship, xla=xla)
+    return dict(shipping=card["fused"], packed=card["packed"], xla=xla)
+
+
+def card_dense_rows(dev: torch.device, fast: bool, repeats: int) -> list[dict]:
+    """The card's dense rows: at every (n, V), what ``solve_dense`` runs
+    for one operator (``seconds``) and the product alone on the converted
+    plane (``product_seconds``), each plane made on ``dev`` from a random
+    edge list."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    ns = CARD_DENSE_NS[::2] if fast else CARD_DENSE_NS
+    vs = CARD_DENSE_VS[::2] if fast else CARD_DENSE_VS
+    rows = []
+    for n in ns:
+        src, dst = _random_edges(n, gen, dev)
+        plane = torch.zeros((n, n), dtype=torch.bool, device=dev)
+        plane[src, dst] = True
+        plane_f = plane.to(torch.float32)
+        for v in vs:
+            x = torch.rand((v, n), generator=gen, device=dev) < 0.5
+            step = _best_s(lambda: (x.to(torch.float32) @ plane.to(torch.float32)) > 0,
+                           repeats, dev)
+            product = _best_s(lambda: (x.to(torch.float32) @ plane_f) > 0, repeats, dev)
+            rows.append(dict(n=n, v=v, seconds=step, product_seconds=product,
+                             elems_per_s=v * n * n / step))
+        del plane, plane_f
+    return rows
 
 
 def dense_probe(fast: bool = False, repeats: int | None = None,
                 backend: str = "cuda") -> dict:
     """Boolean-matmul element throughput of the dense engine's product
-    (``core/dualsim.py::solve_dense``), under the caller's TF32 setting."""
+    (``core/dualsim.py::solve_dense``), under the caller's TF32 setting.
+
+    Each row times what ``solve_dense`` runs for one operator: both
+    operands' f32 conversion, the product and ``> 0``; ``elems_per_s`` is
+    the best row's ``V * n * n / seconds``, as in the reference.  The CPU
+    keeps the reference's rows (V = 16, n up to 4,096).  A card's rows
+    (:func:`card_dense_rows`) span V from 3 to 48 and n up to 16,384, and
+    also time the product alone: the step minus the product is the plane's
+    conversion, which does not shrink with V, and is what
+    ``engine/cost.py`` prices in bytes at the stream rate.
+    """
     dev = resolve_device(backend)
     repeats = repeats or (3 if fast else 5)
+    if dev.type != "cpu":
+        rows = card_dense_rows(dev, fast, repeats)
+        return dict(rows=rows, elems_per_s=max(r["elems_per_s"] for r in rows))
     v = 16
     ns = [1024, 2048] if fast else [1024, 2048, 4096]
     rng = np.random.default_rng(2)
@@ -272,13 +434,13 @@ def probe(fast: bool = False, backend: str = "cuda"):
         n_devices=torch.cuda.device_count() if cuda else 1,
         stream_bytes_per_s=stream["bytes_per_s"],
         dense_elems_per_s=dense["elems_per_s"],
-        packed_words_per_s=ship_wps,
+        # on a card the rates and the launch are the fits of the port's own
+        # kernels; the fused engine ships the words lowering on the CPU
+        packed_words_per_s=bitop["packed"]["words_per_s"] if cuda else ship_wps,
         packed_words_per_s_xla=xla_wps,
-        # the fused engine ships the words lowering on CPU, the kernel
-        # elsewhere — same measurement base as the packed engine's; the
-        # fusion advantage shows up in the launch/overhead terms
         fused_words_per_s=ship_wps if cuda else xla_wps,
-        kernel_launch_s=bitop["shipping"]["overhead_s"],
+        kernel_launch_s=(bitop["shipping"]["launch_s"] if cuda
+                         else bitop["shipping"]["overhead_s"]),
         dispatch_s=bitop["xla"]["overhead_s"],
         trace_s=trace_s,
         collective_bytes_per_s=coll["bytes_per_s"] if coll else None,

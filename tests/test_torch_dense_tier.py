@@ -382,6 +382,36 @@ def _specs(backend: str):
 BACKENDS = [("cpu", "cpu"), ("cuda", "tpu")]
 
 
+def _card_tier_prices(g, c, spec) -> dict[str, float]:
+    """The dense-tier engines' per-sweep prices under a calibrated card
+    spec, from the spec's fields (``engine/cost.py``'s docstring): the
+    work is the init's set bits times the packed width; the dense engine
+    also streams ``DENSE_PLANE_BYTES`` a plane element; every sweep pays
+    one dispatch for its tail."""
+    n, v, m = g.n_nodes, c.n_vars, len(c.mats)
+    words = int(np.count_nonzero(c.init)) * ((n + 31) // 32)
+    tail = spec.dispatch_s
+    return {
+        "dense": m * (v * n * n / spec.dense_elems_per_s
+                      + cost.DENSE_PLANE_BYTES * n * n / spec.stream_bytes_per_s) + tail,
+        "packed": m * (words / spec.packed_words_per_s + spec.kernel_launch_s
+                       + spec.dispatch_s) + tail,
+        "packed_fused": m * (words / spec.fused_words_per_s + spec.kernel_launch_s) + tail,
+    }
+
+
+def _resume_on(g, c, price, spec, delta, last_sweeps):
+    """(resume, est_resume, est_cold) of the reference's resume rule over
+    ``price`` a sweep under ``spec``."""
+    e = int(sum(g.label_histogram()[la] for la, _ in c.mats))
+    frac = delta / max(e, 1)
+    s_resume = 1.0 + last_sweeps * min(1.0, ref_cost.RESUME_SWEEP_RATE * frac)
+    est_cold = spec.trace_s + last_sweeps * price
+    est_resume = 64.0 / spec.stream_bytes_per_s * delta + s_resume * price
+    return (frac <= ref_cost.RESUME_MAX_DELTA_FRACTION and est_resume < est_cold,
+            est_resume, est_cold)
+
+
 def _graphs():
     return [
         (synth.lubm_like(3, seed=0), ref_synth.lubm_like(3, seed=0)),
@@ -397,23 +427,34 @@ def _graphs():
 @pytest.mark.parametrize("graph", range(3))
 def test_cost_model_matches_reference(graph, backends, calibrated):
     """Every engine's price, the choice, and every engine's resume decision
-    equal the reference's for the same graph and calibration."""
+    equal the reference's for the same graph and calibration; under a
+    calibrated card's spec the edge engines' still do, and the three
+    dense-tier engines are priced by the port's kernels' work, their
+    resume decisions by the reference's rule over those prices."""
     g, rg = _graphs()[graph]
     texts = (["{ ?a p0 ?b . ?b p1 ?c }", "{ ?a p1 ?b } OPTIONAL { ?b p0 ?c }"]
              if graph else QUERIES[:4])
     port_backend, ref_backend = backends
     spec, rspec = _specs(ref_backend) if calibrated else (None, None)
+    card = calibrated and port_backend == "cuda"
     for text in texts:
         c = soi.compile_soi(soi.build_soi(sparql.parse(text)), g)
         rc = ref_soi.compile_soi(ref_soi.build_soi(ref_sparql.parse(text)), rg)
         got = cost.estimate_costs(g, c, backend=port_backend, spec=spec)
         want = ref_cost.estimate_costs(rg, rc, backend=ref_backend, spec=rspec)
         assert list(got) == list(cost.ENGINES)
-        assert got == want  # all six engines, partitioned included
+        tier = _card_tier_prices(g, c, spec) if card else {}
+        for engine in cost.ENGINES:  # all six, partitioned included
+            if engine in tier:
+                assert got[engine] == pytest.approx(tier[engine], rel=1e-12), engine
+            else:
+                assert got[engine] == want[engine], engine
         assert want["partitioned"] == float("inf")  # one device
-        assert (cost.choose_engine(g, c, backend=port_backend, spec=spec).engine
-                == ref_cost.choose_engine(rg, rc, backend=ref_backend,
-                                          spec=rspec).engine)
+        pick = cost.choose_engine(g, c, backend=port_backend, spec=spec).engine
+        assert pick == min(got, key=got.get)
+        if not card:
+            assert pick == ref_cost.choose_engine(rg, rc, backend=ref_backend,
+                                                  spec=rspec).engine
         for engine in cost.ENGINES:
             for delta in (1, 10_000):
                 a = cost.resume_decision(
@@ -422,17 +463,32 @@ def test_cost_model_matches_reference(graph, backends, calibrated):
                 b = ref_cost.resume_decision(
                     rg, rc, engine=engine, delta_edges=delta, last_sweeps=5,
                     backend=ref_backend, spec=rspec)
-                assert (a.resume, a.est_resume, a.est_cold) == (
-                    b.resume, b.est_resume, b.est_cold), engine
+                if engine in tier:
+                    b = _resume_on(g, c, tier[engine], spec, delta, 5)
+                    assert a.resume == b[0], engine
+                    assert (a.est_resume, a.est_cold) == pytest.approx(b[1:], rel=1e-12)
+                else:
+                    assert (a.resume, a.est_resume, a.est_cold) == (
+                        b.resume, b.est_resume, b.est_cold), engine
 
 
 def test_from_spec_derives_every_constant_like_reference():
+    """Every constant derives from a spec as the reference derives it; on
+    a card the per-word costs are the reciprocals of the fitted rates of
+    K2 and the packed step, both engines pay K2's fitted launch, and the
+    packed step's chain the measured dispatch."""
     for backend in ("cpu", "tpu"):
         spec, rspec = _specs(backend)
         got, want = cost.CostModel.from_spec(spec), ref_cost.CostModel.from_spec(rspec)
         for f in dataclasses.fields(got):
             if f.name != "source":
                 assert getattr(got, f.name) == getattr(want, f.name), f.name
+        if backend == "tpu":  # the card's spec (port backend "cuda")
+            assert got.c_packed_fused == 1.0 / spec.fused_words_per_s
+            assert got.c_packed == 1.0 / spec.packed_words_per_s
+            assert got.fused_launch == got.packed_launch == spec.kernel_launch_s
+            assert got.c_dispatch == spec.dispatch_s
+            assert got.c_segor_byte == 1.0 / spec.stream_bytes_per_s
         fields = {f.name for f in dataclasses.fields(cost.CostModel)}
         assert all(hasattr(cost.HAND_TUNED, f) for f in fields)
     for name in ("c_dense", "c_packed", "c_packed_interpret", "c_packed_fused",
@@ -451,14 +507,25 @@ def test_golden_cpu_spec_prefers_wordwise_over_interpreted_packed():
 
 
 def test_golden_accel_spec_picks_fused_past_the_launch_knee():
-    """On the card, past the knee (n=4096, 2M edges) packed_fused wins;
-    below it (n=256) dense does — as the reference's accelerator golden."""
+    """On the card, past the knee (n=4096, 2M edges) packed_fused wins, as
+    the reference's accelerator golden; below it (n=256) dense is the
+    dense tier's cheapest, but with the tier priced by the port's kernels'
+    work (the plane's f32 conversion, a sweep's tail) this spec's 1 us
+    dispatch leaves sparse cheaper still, where the reference picks dense
+    (the H100's own spec picks dense there:
+    ``test_golden_h100_spec_picks_the_engine_the_card_runs_fastest``)."""
     spec, _ = _specs("tpu")
     text = "{ ?a p0 ?b . ?b p1 ?c }"
-    for n, e, engine in ((4096, 2_000_000, "packed_fused"), (256, 8192, "dense")):
+    for n, e, engine in ((4096, 2_000_000, "packed_fused"), (256, 8192, "sparse")):
         g = synth.random_graph(n_nodes=n, n_labels=2, n_edges=e, seed=2)
         c = soi.compile_soi(soi.build_soi(sparql.parse(text)), g)
-        assert cost.choose_engine(g, c, spec=spec, backend="cuda").engine == engine
+        est = cost.choose_engine(g, c, spec=spec, backend="cuda")
+        assert est.engine == engine
+        tier = _card_tier_prices(g, c, spec)
+        for name, price in tier.items():
+            assert est.costs[name] == pytest.approx(price, rel=1e-12), name
+        if n == 256:
+            assert min(tier, key=tier.get) == "dense"
 
 
 def test_hand_tuned_card_picks_fused_on_the_block_dense_graph():
@@ -475,6 +542,90 @@ def test_hand_tuned_card_picks_fused_on_the_block_dense_graph():
     assert est.engine == "packed_fused"
     assert est.costs == want  # all six engines, partitioned included
     assert est.costs["packed_fused"] < est.costs["sparse"]
+
+
+# phase 2c of chip_smoke.py on an NVIDIA H100 80GB HBM3 at a 700.00 W
+# power limit: the spec the card's probe measured
+H100_SPEC = dict(
+    backend="cuda", device_kind="NVIDIA H100 80GB HBM3", fingerprint="golden-h100",
+    n_devices=1, stream_bytes_per_s=1697798061846.4106,
+    dense_elems_per_s=8472383100553.069, packed_words_per_s=12270117282470.234,
+    packed_words_per_s_xla=6776285688.46118, fused_words_per_s=4098097831387.773,
+    kernel_launch_s=9.201744526280389e-05, dispatch_s=0.0006189679999977216,
+    trace_s=0.0010238620000109222,
+)
+
+
+def _batched_csoi(g, text: str, batch: int):
+    """The compiled SOI a plan of ``batch`` requests of ``text`` prices
+    (``engine/plan.py``: the batch's disjoint union, slot rows initialized
+    like variables)."""
+    from repro_torch.engine.batcher import batch_layout
+    from repro_torch.engine.template import slot_index
+
+    union = batch_layout(
+        [soi.build_soi(canonicalize(sparql.parse(text)).template.query)] * batch).soi
+    stripped = dataclasses.replace(union, is_const=[
+        None if (k is not None and slot_index(k) is not None) else k
+        for k in union.is_const])
+    return soi.compile_soi(stripped, g)
+
+
+def test_golden_h100_spec_picks_the_engine_the_card_runs_fastest():
+    """Under the H100's own spec, auto picks dense below the launch knee
+    (n = 256); packed_fused on the 16,384-node, 8M-edge block and on the
+    46,200-node LUBM graph's serving microbatch (V = 48, 380,800 set
+    bits), where the card ran it fastest; and sparse past the dense-tier
+    bound."""
+    spec = machine.MachineSpec(**H100_SPEC)
+    text = "{ ?a p0 ?b . ?b p1 ?c }"
+    small = synth.random_graph(n_nodes=256, n_labels=2, n_edges=8192, seed=2)
+    c = soi.compile_soi(soi.build_soi(sparql.parse(text)), small)
+    assert cost.choose_engine(small, c, backend="cuda", spec=spec).engine == "dense"
+    block = synth.random_graph(n_nodes=16_384, n_labels=2, n_edges=8_000_000, seed=0)
+    c = soi.compile_soi(soi.build_soi(sparql.parse(text)), block)
+    est = cost.choose_engine(block, c, backend="cuda", spec=spec)
+    assert est.engine == "packed_fused", est.reason
+    assert est.costs["packed_fused"] < est.costs["packed"] < est.costs["dense"]
+    g = synth.lubm_like(280, seed=0)
+    c = _batched_csoi(g, MEMBERS_OF.format(uni="Univ0"), 16)
+    assert (g.n_nodes, c.n_vars, int(np.count_nonzero(c.init))) == (46_200, 48, 380_800)
+    est = cost.choose_engine(g, c, backend="cuda", spec=spec)
+    assert est.engine == "packed_fused", est.reason
+    big = synth.random_graph(int(DENSE_ADJ_MAX_BYTES ** 0.5) + 1, 2, 10_000, seed=0)
+    c = soi.compile_soi(soi.build_soi(sparql.parse(text)), big)
+    est = cost.choose_engine(big, c, backend="cuda", spec=spec)
+    assert est.engine == "sparse", est.reason
+    assert all(est.costs[tier] == float("inf") for tier in TIER)
+
+
+def test_card_memory_sizes_the_packed_budget(monkeypatch):
+    """On a calibrated card the packed engines' stacked operands may take
+    an ``ADJ_CACHE_STACKS``-th of its memory: ``lubm_l1`` on the 46,200-node
+    LUBM graph (M = 10, 2.67 GB packed, past the reference's 2 GiB) prices
+    packed_fused finite on an 80 GB card and picks it under the H100's
+    spec; with no card, with the hand-tuned model and on the CPU the
+    budget stays the reference's."""
+    spec = machine.MachineSpec(**H100_SPEC)
+    g = synth.lubm_like(280, seed=0)
+    c = soi.compile_soi(soi.build_soi(synth.lubm_l1_like()), g)
+    n_words = (g.n_nodes + 31) // 32
+    packed_bytes = len(c.mats) * g.n_nodes * n_words * 4
+    assert cost.PACKED_MAX_BYTES < packed_bytes < 80 * 10**9 // cost.ADJ_CACHE_STACKS
+    monkeypatch.setattr(cost, "_card_memory_bytes", lambda: None)
+    est = cost.choose_engine(g, c, backend="cuda", spec=spec)
+    assert est.engine == "sparse" and est.costs["packed_fused"] == float("inf")
+    monkeypatch.setattr(cost, "_card_memory_bytes", lambda: 80 * 10**9)
+    assert cost.packed_max_bytes(True) == 80 * 10**9 // cost.ADJ_CACHE_STACKS
+    assert cost.packed_max_bytes(False) == cost.PACKED_MAX_BYTES
+    est = cost.choose_engine(g, c, backend="cuda", spec=spec)
+    assert est.engine == "packed_fused", est.reason
+    tier = _card_tier_prices(g, c, spec)
+    for name in ("packed", "packed_fused"):
+        assert est.costs[name] == pytest.approx(tier[name], rel=1e-12), name
+    assert est.costs["dense"] == float("inf")  # M n^2 bytes past DENSE_MAX_BYTES
+    for kw in (dict(backend="cuda", model=cost.HAND_TUNED), dict(backend="cpu", spec=spec)):
+        assert cost.estimate_costs(g, c, **kw)["packed_fused"] == float("inf")
 
 
 @pytest.mark.parametrize("seed", range(4))

@@ -905,9 +905,10 @@ def test_lm_sharded_serving_on_card_matches_plain(cuda_device, no_tf32, arch_id,
 
 def test_roofline_probe_on_card(cuda_device, tmp_path):
     """The machine probe's ``--fast`` sweep on the card: finite, positive
-    rates, the card's own name and count, the fused rate the shipping
-    kernel's, no collective rate on one card, the kernel launched, and a
-    spec that saves and loads back equal."""
+    rates, the card's own name and count, the fused rate and the launch
+    K2's fit (launch not negative, every row's residual printed), the
+    packed rate its step's fit, no collective rate on one card, the kernel
+    launched, and a spec that saves and loads back equal."""
     import math
 
     from repro_torch.engine import machine
@@ -920,12 +921,21 @@ def test_roofline_probe_on_card(cuda_device, tmp_path):
     assert spec.device_kind == torch.cuda.get_device_name(0)
     assert spec.n_devices == torch.cuda.device_count()
     for name in ("stream_bytes_per_s", "dense_elems_per_s", "packed_words_per_s",
-                 "packed_words_per_s_xla", "fused_words_per_s", "kernel_launch_s",
-                 "dispatch_s"):
+                 "packed_words_per_s_xla", "fused_words_per_s", "dispatch_s"):
         value = getattr(spec, name)
         assert math.isfinite(value) and value > 0, name
     assert math.isfinite(spec.trace_s) and spec.trace_s >= 0
-    assert spec.fused_words_per_s == spec.packed_words_per_s
+    fused, packed = detail["bitop"]["shipping"], detail["bitop"]["packed"]
+    assert math.isfinite(spec.kernel_launch_s) and spec.kernel_launch_s >= 0
+    assert spec.kernel_launch_s == fused["launch_s"] >= 0
+    assert spec.fused_words_per_s == fused["words_per_s"]
+    assert spec.packed_words_per_s == packed["words_per_s"] and packed["launch_s"] >= 0
+    for key, fit in (("K2", fused), ("packed step", packed)):
+        for r in fit["rows"]:
+            print(f"{key} n={r['n']} V={r['v']} density={r['density']} "
+                  f"work={r['work']}: {r['seconds'] * 1e3:.4f} ms, fit "
+                  f"{r['fit_seconds'] * 1e3:.4f} ms, residual "
+                  f"{(r['seconds'] - r['fit_seconds']) * 1e3:+.4f} ms")
     assert (spec.collective_bytes_per_s is None) == (torch.cuda.device_count() < 2)
     path = machine.save_spec(spec, str(tmp_path / "spec.json"))
     assert machine.load_spec(path) == spec

@@ -31,6 +31,7 @@ from repro_torch.distributed import ctx
 from repro_torch.engine import Engine, canonicalize, cost, machine
 from repro_torch.launch import serve as launch_serve
 from tests.test_torch_db import MEMBERS_OF, QUERIES, _same_result
+from tests.test_torch_dense_tier import _card_tier_prices, _resume_on
 from tests.test_torch_dualsim import (
     _mutate,
     _random_query,
@@ -418,35 +419,55 @@ def test_cost_model_with_devices_matches_reference(n_devices, backend,
                                                    calibrated):
     """The six-engine dict, the pick and the resume decision equal the
     reference's at 1, 2 and 8 devices, hand-tuned and calibrated (slow and
-    fast collectives); on one device partitioned is never selectable."""
-    g, rg = _big()
+    fast collectives), on the 60,000-node graph past the dense tier and on
+    a 2,000-node graph inside it; on one device partitioned is never
+    selectable.  Under a calibrated card's spec the dense-tier engines
+    inside the tier are priced by the port's kernels' work instead, their
+    resume decisions by the reference's rule over those prices, and the
+    edge engines' prices and decisions stay the reference's."""
     ref_backend = "cpu" if backend == "cpu" else "tpu"
     spec = rspec = None
     if calibrated is not None:
         spec, rspec = _specs(backend=ref_backend,
                              collective_bytes_per_s=calibrated)
-    for text in ("{ ?a p0 ?b }", "{ ?a p0 ?b . ?b p1 ?a }"):
-        c, rc = _both(text, g, rg)
-        got = cost.estimate_costs(g, c, backend=backend, n_devices=n_devices,
-                                  spec=spec)
-        want = ref_cost.estimate_costs(rg, rc, backend=ref_backend,
-                                       n_devices=n_devices, spec=rspec)
-        assert got == want
-        assert (got["partitioned"] == float("inf")) == (n_devices == 1)
-        est = cost.choose_engine(g, c, backend=backend, n_devices=n_devices,
-                                 spec=spec)
-        rest = ref_cost.choose_engine(rg, rc, backend=ref_backend,
-                                      n_devices=n_devices, spec=rspec)
-        assert est.engine == rest.engine and est.costs == rest.costs
-        for engine in cost.ENGINES:
-            a = cost.resume_decision(g, c, engine=engine, delta_edges=10,
-                                     last_sweeps=4, backend=backend,
-                                     n_devices=n_devices, spec=spec)
-            b = ref_cost.resume_decision(rg, rc, engine=engine, delta_edges=10,
-                                         last_sweeps=4, backend=ref_backend,
-                                         n_devices=n_devices, spec=rspec)
-            assert (a.resume, a.est_resume, a.est_cold) == (
-                b.resume, b.est_resume, b.est_cold), engine
+    card = spec is not None and backend == "cuda"
+    kw = dict(n_nodes=2_000, n_labels=2, n_edges=20_000, seed=1)
+    for g, rg in (_big(), (synth.random_graph(**kw), ref_synth.random_graph(**kw))):
+        for text in ("{ ?a p0 ?b }", "{ ?a p0 ?b . ?b p1 ?a }"):
+            c, rc = _both(text, g, rg)
+            got = cost.estimate_costs(g, c, backend=backend, n_devices=n_devices,
+                                      spec=spec)
+            want = ref_cost.estimate_costs(rg, rc, backend=ref_backend,
+                                           n_devices=n_devices, spec=rspec)
+            tier = (_card_tier_prices(g, c, spec)
+                    if card and cost.dense_tier_feasible(g.n_nodes) else {})
+            for engine in cost.ENGINES:
+                if engine in tier:
+                    assert got[engine] == pytest.approx(tier[engine], rel=1e-12)
+                else:
+                    assert got[engine] == want[engine], engine
+            assert (got["partitioned"] == float("inf")) == (n_devices == 1)
+            est = cost.choose_engine(g, c, backend=backend, n_devices=n_devices,
+                                     spec=spec)
+            rest = ref_cost.choose_engine(rg, rc, backend=ref_backend,
+                                          n_devices=n_devices, spec=rspec)
+            assert est.costs == got and est.engine == min(got, key=got.get)
+            if not tier:
+                assert est.engine == rest.engine and est.costs == rest.costs
+            for engine in cost.ENGINES:
+                a = cost.resume_decision(g, c, engine=engine, delta_edges=10,
+                                         last_sweeps=4, backend=backend,
+                                         n_devices=n_devices, spec=spec)
+                b = ref_cost.resume_decision(rg, rc, engine=engine, delta_edges=10,
+                                             last_sweeps=4, backend=ref_backend,
+                                             n_devices=n_devices, spec=rspec)
+                if engine in tier:
+                    b = _resume_on(g, c, tier[engine], spec, 10, 4)
+                    assert a.resume == b[0], engine
+                    assert (a.est_resume, a.est_cold) == pytest.approx(b[1:], rel=1e-12)
+                else:
+                    assert (a.resume, a.est_resume, a.est_cold) == (
+                        b.resume, b.est_resume, b.est_cold), engine
 
 
 def test_cost_model_partitioned_needs_a_mesh_and_wins_on_one():

@@ -180,3 +180,96 @@ def test_graphdb_spec_prices_its_plans(probed):
     assert np.array_equal(got.survivor_mask, want.survivor_mask)
     for v in want.variables:
         assert np.array_equal(got.binding_mask(v), want.binding_mask(v))
+
+
+def test_card_fingerprint_folds_in_the_pricing_version(monkeypatch, tmp_path):
+    """A card's fingerprint keeps the ``torch-`` prefix, backend, kind and
+    host shape, and hashes the pricing version with the host name: a spec
+    saved under the earlier fingerprint is never looked up by default."""
+    import hashlib
+    import os
+    import platform
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: "NVIDIA H100 80GB HBM3")
+    got = machine.machine_fingerprint("cuda")
+    head = f"torch-cuda__NVIDIA-H100-80GB-HBM3__{platform.machine()}__{os.cpu_count()}__1__"
+    earlier = head + hashlib.blake2b(platform.node().encode(), digest_size=4).hexdigest()
+    node = f"{platform.node()}|pricing-{machine.CARD_PRICING_VERSION}"
+    assert got == head + hashlib.blake2b(node.encode(), digest_size=4).hexdigest()
+    assert got != earlier and machine.CARD_PRICING_VERSION >= 2
+    # the CPU's fingerprint hashes the host name alone, as before
+    assert machine.machine_fingerprint("cpu").endswith(
+        hashlib.blake2b(platform.node().encode(), digest_size=4).hexdigest())
+    monkeypatch.setattr(machine, "SPEC_DIR", str(tmp_path))
+    monkeypatch.delenv(machine.ENV_VAR, raising=False)
+    machine.clear_spec_cache()
+    old = dataclasses.replace(
+        machine.load_spec(ref_machine.save_spec(_reference_spec(), str(tmp_path / "r.json"))),
+        backend="cuda", fingerprint=earlier)
+    machine.save_spec(old)
+    assert machine.default_spec("cuda") is None
+    machine.save_spec(dataclasses.replace(old, fingerprint=got))
+    assert machine.default_spec("cuda").fingerprint == got
+    machine.clear_spec_cache()
+
+
+def test_packed_operand_packs_like_the_graph():
+    """The probe's device-built operand equals ``pack_np`` of the bool plane
+    of the same random edges, with no ``[n, n]`` plane made."""
+    import numpy as np
+
+    from repro_torch.core import bitops
+
+    for n in (1, 33, 100, 257):
+        a = roofline.packed_operand(n, torch.Generator().manual_seed(n), torch.device("cpu"))
+        src, dst = roofline._random_edges(n, torch.Generator().manual_seed(n),
+                                          torch.device("cpu"))
+        plane = np.zeros((n, n), dtype=bool)
+        plane[src.numpy(), dst.numpy()] = True
+        assert a.dtype == torch.int32 and a.shape == (n, bitops.packed_width(n))
+        assert np.array_equal(a.numpy().view(np.uint32), bitops.pack_np(plane))
+
+
+def test_fit_recovers_launch_and_rate():
+    """``seconds = launch + work / rate`` fitted back from exact rows; a
+    fit that would put the launch below 0 holds it at 0."""
+    rows = [dict(work=w, seconds=7e-5 + w / 4e12) for w in (1e4, 1e6, 1e8, 1e9, 2e9)]
+    launch, rate = roofline.fit_launch_rate(rows)
+    assert launch == pytest.approx(7e-5, rel=1e-9) and rate == pytest.approx(4e12, rel=1e-9)
+    rows = [dict(work=w, seconds=w / 1e9 - 1e-4) for w in (1e6, 1e7, 1e8)]
+    launch, rate = roofline.fit_launch_rate(rows)
+    assert launch == 0.0 and math.isfinite(rate) and rate > 0
+
+
+def test_card_rows_run_on_the_cpu_at_small_sizes(monkeypatch):
+    """The card's bit-op and dense rows (here on the CPU's plain versions
+    at small shapes): every (n, V, density) row with its set bits, work and
+    fitted seconds, both fits finite, and the dense rows with the product
+    timed alone."""
+    monkeypatch.setattr(roofline, "CARD_BITOP_NS", (64, 200))
+    monkeypatch.setattr(roofline, "CARD_BITOP_VS", (3, 8))
+    monkeypatch.setattr(roofline, "CARD_DENSITIES", (0.1, 0.5))
+    monkeypatch.setattr(roofline, "CARD_DENSE_NS", (64, 128))
+    monkeypatch.setattr(roofline, "CARD_DENSE_VS", (3, 16))
+    cpu = torch.device("cpu")
+    card = roofline.card_bitop_rows(cpu, fast=False, repeats=1)
+    for key in ("fused", "packed"):
+        fit = card[key]
+        assert [(r["n"], r["v"], r["density"]) for r in fit["rows"]] == [
+            (n, v, d) for n in (64, 200) for v in (3, 8) for d in (0.1, 0.5)]
+        for r in fit["rows"]:
+            assert 0 < r["bits"] <= r["n"] * r["v"]
+            assert r["work"] == r["bits"] * ((r["n"] + 31) // 32)
+            assert r["fit_seconds"] == pytest.approx(
+                fit["launch_s"] + r["work"] / fit["words_per_s"])
+        assert fit["launch_s"] >= 0 and math.isfinite(fit["words_per_s"])
+        assert fit["words_per_s"] > 0
+    fast = roofline.card_bitop_rows(cpu, fast=True, repeats=1)
+    assert [(r["n"], r["v"]) for r in fast["fused"]["rows"]] == [(64, 3)]
+    rows = roofline.card_dense_rows(cpu, fast=False, repeats=1)
+    assert [(r["n"], r["v"]) for r in rows] == [(64, 3), (64, 16), (128, 3), (128, 16)]
+    for r in rows:
+        assert r["seconds"] > 0 and r["product_seconds"] > 0
+        assert r["elems_per_s"] == r["v"] * r["n"] ** 2 / r["seconds"]
