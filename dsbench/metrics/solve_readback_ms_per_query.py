@@ -1,0 +1,11 @@
+"""Seconds of the engines' ``solve.readback`` stage
+(``EngineMetrics.stage_seconds``, summed over the front end's engine and every
+replica; each solve's copy of chi to the host, with the device unpack it waits
+on) over the window and its tail, in ms per answered request; nothing where the
+program has no such stage."""
+
+
+def read(run):
+    n = len(run.answered)
+    s = run.stages.get("solve.readback")
+    return s * 1e3 / n if n and s is not None else None

@@ -53,6 +53,14 @@ def prune_triples(
     )
 
 
+def triples_scanned(soi: SOI, g: Graph) -> int:
+    """The triples whose membership :func:`prune_triples` evaluates: all of
+    ``g``'s for each pattern edge whose label ``g`` holds."""
+    labels = g.label_index() if g.label_names is not None else {}
+    edges = sum(1 for _, a, _ in soi.pattern_edges if not isinstance(a, str) or a in labels)
+    return edges * g.n_edges
+
+
 def pruned_graph(soi: SOI, chi: np.ndarray, g: Graph) -> tuple[Graph, PruneStats]:
     mask, stats = prune_triples(soi, chi, g)
     return subgraph_triples(g, mask), stats

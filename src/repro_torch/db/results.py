@@ -69,6 +69,18 @@ class ResultSet:
         return self._raw.batch
 
     @property
+    def microbatch(self) -> int | None:
+        """The serving engine's id of the solve this request rode in (None
+        for a UNION request, whose parts each ride alone); riders of one
+        solve share it."""
+        return self._raw.microbatch
+
+    @property
+    def rows(self) -> int:
+        """Distinct constant sets solved in the request's microbatch."""
+        return self._raw.rows
+
+    @property
     def template_keys(self) -> tuple[str, ...]:
         """Plan-cache template keys (one per union-free part)."""
         return self._raw.template_keys

@@ -17,12 +17,14 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import itertools
 import threading
 import time
 from typing import Sequence
 
 import numpy as np
 
+from repro_torch import spans
 from repro_torch.core import pruning, soi as soi_mod, sparql
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.core.graph import Graph
@@ -48,6 +50,10 @@ class ExecResult:
     cache_hit: bool  # every plan this request needed was cached
     batch: int  # microbatch bucket the request rode in
     timings: dict[str, float]  # per-stage seconds
+    # the engine's id of the solve the request rode in; None for a UNION
+    # request, whose parts each ride alone
+    microbatch: int | None = None
+    rows: int = 1  # the microbatch's distinct constant sets
 
 
 @dataclasses.dataclass
@@ -66,6 +72,17 @@ class EngineMetrics:
     that actually started from a previous fixpoint, and
     ``adj_rebuilds_saved`` counts adjacency uploads avoided because the
     delta touched none of an entry's labels (DESIGN.md Sect. 8).
+
+    ``stage_seconds`` sums the engine's spans by name
+    (:mod:`repro_torch.spans`): the stages ``parse``, ``plan``, ``solve`` and
+    ``prune``, and their parts ``plan.compile`` and ``plan.operands`` (plans
+    built from scratch), ``solve.bind``, ``solve.sweeps``,
+    ``solve.readback`` and ``solve.memo``, ``prune.triples`` and
+    ``prune.collect``.  ``prune_triples_scanned`` counts the triples whose
+    membership pruning evaluated and ``prune_survivors`` those kept;
+    ``rows_solved`` counts the chi rows the fixpoint solved (bucket x
+    variables a microbatch) and ``rows_useful`` those of distinct constant
+    sets.
     """
 
     requests: int
@@ -80,6 +97,10 @@ class EngineMetrics:
     resumes_declined: int = 0  # staged plans the cost model sent cold
     warm_resume_solves: int = 0  # fixpoint solves warm-started from old chi
     adj_rebuilds_saved: int = 0  # adjacency kept because its labels were untouched
+    prune_triples_scanned: int = 0
+    prune_survivors: int = 0
+    rows_solved: int = 0
+    rows_useful: int = 0
 
     @property
     def plan_builds(self) -> int:
@@ -198,6 +219,7 @@ class Engine:
         # superseded-but-resumable plans: (template key, bucket, engine,
         # n_blocks, mesh) -> (plan, composed delta from its snapshot to now)
         self._resumable: dict = {}
+        self._microbatch_ids = itertools.count(1)  # ids of the solves, per engine
         # one lock for every serving counter below: updates that belong to
         # one event (a microbatch's count + its engine tally) commit
         # atomically, and stats() copies under the same lock, so a reader
@@ -212,6 +234,10 @@ class Engine:
         self._resumes_declined = 0  # guarded-by: _stats_lock
         self._warm_solves = 0  # guarded-by: _stats_lock
         self._adj_rebuilds_saved = 0  # guarded-by: _stats_lock
+        self._prune_scanned = 0  # guarded-by: _stats_lock
+        self._prune_survivors = 0  # guarded-by: _stats_lock
+        self._rows_solved = 0  # guarded-by: _stats_lock
+        self._rows_useful = 0  # guarded-by: _stats_lock
         self._engine_counts: dict[str, int] = {}  # guarded-by: _stats_lock
         self._stage_seconds: dict[str, float] = {}  # guarded-by: _stats_lock
         # fault-injection hook armed by the serving layer (a
@@ -428,7 +454,6 @@ class Engine:
         res.timings["batch_total"] = res.timings["total"]  # batch of one
         with self._stats_lock:
             self._requests += 1
-        self._bump_stage("parse", t_parse)
         return res
 
     def prepare(self, query: str | Query) -> tuple[Query, TemplateInstance | None]:
@@ -442,8 +467,7 @@ class Engine:
         admission anyway) and hand the prepared pairs to
         :meth:`execute_prepared` at flush, paying canonicalization once.
         """
-        q, t_parse = self._parse(query)
-        self._bump_stage("parse", t_parse)
+        q, _ = self._parse(query)
         parts = sparql.union_split(q)
         return q, canonicalize(parts[0]) if len(parts) == 1 else None
 
@@ -459,13 +483,15 @@ class Engine:
         The snapshot is pinned ONCE here: every request of the call —
         microbatched and multipart (UNION) alike — executes against the
         same graph version, even when the source database mutates while
-        the batch is in flight.
+        the batch is in flight.  Served requests' ids come in through
+        :func:`repro_torch.spans.inside`, in the order of ``prepared``.
         """
         if self.faults is not None:
             # deterministic injection site (DESIGN.md 14.1): a poisoned
             # request raises here, on every replica it is retried on
             self.faults.on_execute_prepared(list(prepared))
         self.refresh()
+        rids = spans.requests()
         results: list[ExecResult | None] = [None] * len(prepared)
         batcher = MicroBatcher(self.buckets)
         multipart: list[tuple[int, Query]] = []
@@ -489,16 +515,21 @@ class Engine:
         for idx, q in multipart:
             # NOT self.execute(): that would refresh() mid-batch and let one
             # execute_many call mix two graph versions under mutation
-            results[idx] = self._execute_pinned(q)
+            with spans.inside(requests=None if rids is None else rids[idx:idx + 1]):
+                results[idx] = self._execute_pinned(q)
         with self._stats_lock:
             self._requests += len(prepared) - len(multipart)  # _execute_pinned counted the rest
         return results  # type: ignore[return-value]
 
     # ------------------------------------------------------------------ #
     def _parse(self, query: str | Query) -> tuple[Query, float]:
-        t = time.perf_counter()
-        q = sparql.parse(query) if isinstance(query, str) else query
-        return q, time.perf_counter() - t
+        with spans.stages() as stages:
+            t = spans.begin()
+            q = sparql.parse(query) if isinstance(query, str) else query
+            t_parse = spans.end("parse", t, requests=spans.requests())
+        with self._stats_lock:
+            self._take_stages_locked(stages)
+        return q, t_parse
 
     def _solve_microbatch(
         self,
@@ -506,6 +537,12 @@ class Engine:
         bucket: int | None = None,
     ) -> list[tuple[int, ExecResult]]:
         """Solve same-template requests as one padded disjoint-union batch."""
+        # served request ids by the requests' indices (span attributes only)
+        rids = spans.requests()
+        if rids is not None and max(idx for idx, _ in requests) >= len(rids):
+            rids = None
+        t_mb = spans.begin()
+        mb_id = next(self._microbatch_ids)
         # requests with identical constants share one instance slot
         by_consts: dict[tuple[str, ...], list[tuple[int, TemplateInstance]]] = {}
         for idx, inst in requests:
@@ -515,62 +552,88 @@ class Engine:
             bucket = bucket_for(len(uniq), self.buckets)
         bindings = uniq + [uniq[-1]] * (bucket - len(uniq))  # pad: repeat last
 
-        t = time.perf_counter()
-        # snapshot already pinned by the caller (execute/execute_prepared)
-        plan, hit = self.plan_for(requests[0][1].template, bucket, _refresh=False)
-        t_plan = time.perf_counter() - t
-
-        t = time.perf_counter()
-        warm_before = plan.metrics.warm_resumes
-        chi, sweeps = plan.execute(bindings)
-        t_solve = time.perf_counter() - t
-        with self._stats_lock:
-            # one atomic commit per microbatch event, so every stats()
-            # snapshot satisfies sum(engine_counts) == microbatches
-            self._warm_solves += plan.metrics.warm_resumes - warm_before
-            self._microbatches += 1
-            self._engine_counts[plan.engine] = (
-                self._engine_counts.get(plan.engine, 0) + 1
-            )
-        self._bump_stage("plan", t_plan)
-        self._bump_stage("solve", t_solve)
-
         out: list[tuple[int, ExecResult]] = []
-        for i, consts in enumerate(uniq):
-            t = time.perf_counter()
-            chi_i = chi[plan.layout.chi_slice(i)]
-            mask, stats = pruning.prune_triples(plan.base_soi, chi_i, self.db)
-            canon_rows = soi_mod.collect(plan.base_soi, chi_i)
-            t_prune = time.perf_counter() - t
-            self._bump_stage("prune", t_prune)
-            for idx, inst in by_consts[consts]:
-                out.append(
-                    (
-                        idx,
-                        ExecResult(
-                            survivors=mask,
-                            stats=stats,
-                            bindings=inst.rename_bindings(canon_rows),
-                            sweeps=sweeps,
-                            engine=plan.engine,
-                            template_keys=(plan.template.key,),
-                            cache_hit=hit,
-                            batch=bucket,
-                            timings={
-                                "plan": t_plan,
-                                "solve": t_solve,
-                                "prune": t_prune,
-                            },
-                        ),
-                    )
+        with spans.stages() as stages:
+            t = spans.begin()
+            # snapshot already pinned by the caller (execute/execute_prepared)
+            plan, hit = self.plan_for(requests[0][1].template, bucket, _refresh=False)
+            t_plan = spans.end("plan", t, hit=hit)
+
+            t = spans.begin()
+            warm_before = plan.metrics.warm_resumes
+            chi, sweeps = plan.execute(bindings)
+            t_solve = spans.end("solve", t, sweeps=sweeps, engine=plan.engine)
+            n_vars = plan.base_soi.n_vars
+            with self._stats_lock:
+                # one atomic commit per microbatch event, so every stats()
+                # snapshot satisfies sum(engine_counts) == microbatches
+                self._warm_solves += plan.metrics.warm_resumes - warm_before
+                self._microbatches += 1
+                self._engine_counts[plan.engine] = (
+                    self._engine_counts.get(plan.engine, 0) + 1
                 )
+                self._rows_solved += bucket * n_vars
+                self._rows_useful += len(uniq) * n_vars
+                self._take_stages_locked(stages)  # plan, solve and their parts
+
+            scanned = survivors = 0
+            try:
+                for i, consts in enumerate(uniq):
+                    riders = by_consts[consts]
+                    t = spans.begin()
+                    chi_i = chi[plan.layout.chi_slice(i)]
+                    t_part = spans.begin()
+                    mask, stats = pruning.prune_triples(plan.base_soi, chi_i, self.db)
+                    spans.end("prune.triples", t_part, requests=None if rids is None else [
+                        rids[idx] for idx, _ in riders])
+                    scanned += pruning.triples_scanned(plan.base_soi, self.db)
+                    survivors += stats.n_after
+                    t_part = spans.begin()
+                    canon_rows = soi_mod.collect(plan.base_soi, chi_i)
+                    spans.end("prune.collect", t_part)
+                    t_prune = spans.end("prune", t)
+                    for idx, inst in riders:
+                        out.append(
+                            (
+                                idx,
+                                ExecResult(
+                                    survivors=mask,
+                                    stats=stats,
+                                    bindings=inst.rename_bindings(canon_rows),
+                                    sweeps=sweeps,
+                                    engine=plan.engine,
+                                    template_keys=(plan.template.key,),
+                                    cache_hit=hit,
+                                    batch=bucket,
+                                    timings={
+                                        "plan": t_plan,
+                                        "solve": t_solve,
+                                        "prune": t_prune,
+                                    },
+                                    microbatch=mb_id,
+                                    rows=len(uniq),
+                                ),
+                            )
+                        )
+            finally:
+                # the prunes that ran, also where a later one raised (the
+                # router then retries each request alone)
+                with self._stats_lock:
+                    self._prune_scanned += scanned
+                    self._prune_survivors += survivors
+                    self._take_stages_locked(stages)
+        spans.end("microbatch", t_mb, microbatch=mb_id, template=plan.template.key,
+                  bucket=bucket, rows=len(uniq),
+                  requests=None if rids is None else [rids[idx] for idx, _ in requests])
         return out
 
-    def _bump_stage(self, stage: str, seconds: float) -> None:
-        with self._stats_lock:
-            self._stage_seconds[stage] = (
-                self._stage_seconds.get(stage, 0.0) + seconds
-            )
+    # requires-lock: _stats_lock
+    def _take_stages_locked(self, stages: dict[str, float]) -> None:
+        """Add ``stages`` (a :func:`repro_torch.spans.stages` dict) to the
+        stage seconds, and empty it."""
+        for stage, dt in stages.items():
+            self._stage_seconds[stage] = self._stage_seconds.get(stage, 0.0) + dt
+        stages.clear()
 
     # ------------------------------------------------------------------ #
     def stats(self) -> EngineMetrics:
@@ -596,6 +659,10 @@ class Engine:
                 resumes_declined=self._resumes_declined,
                 warm_resume_solves=self._warm_solves,
                 adj_rebuilds_saved=self._adj_rebuilds_saved,
+                prune_triples_scanned=self._prune_scanned,
+                prune_survivors=self._prune_survivors,
+                rows_solved=self._rows_solved,
+                rows_useful=self._rows_useful,
             )
 
     def metrics(self) -> EngineMetrics:

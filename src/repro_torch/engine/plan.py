@@ -22,12 +22,12 @@ scatter index list carries one entry per (instance, slot variable).
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Sequence
 
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core import bitops, dualsim, soi as soi_mod
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.core.graph import Graph, GraphDelta
@@ -53,7 +53,6 @@ class PlanMetrics:
 
     operand_builds: int = 0  # operand sets built from the graph (1 per plan)
     executions: int = 0  # fixpoint solves run
-    build_seconds: float = 0.0  # host-side SOI build + compile + operands
     patches: int = 0  # shape-stable graph deltas adopted in place
     warm_resumes: int = 0  # executions warm-started from a previous chi
 
@@ -89,7 +88,7 @@ class CompiledPlan:
         :class:`repro_torch.engine.machine.MachineSpec` the
         ``engine="auto"`` selection prices with.
         """
-        t0 = time.perf_counter()
+        t0 = spans.begin()
         self.device = resolve_device(device)
         self.template = template
         self.batch = batch
@@ -151,8 +150,13 @@ class CompiledPlan:
         # engines whose fixpoint carries bit-packed chi take constants and
         # warm starts as int32 words; dense and packed keep bool chi
         self._packed_chi = engine not in ("dense", "packed")
+        spans.end("plan.compile", t0)
 
-        self.metrics = PlanMetrics()
+        t1 = spans.begin()
+        # the adjacency entries before the build, to tell a shared upload
+        # from a new one (a span attribute, so only while tracing)
+        adj_before = (dict(dict.items(adj_cache))
+                      if adj_cache is not None and spans.enabled() else None)
         if engine == "partitioned":
             # block-major placement: block w's edges on block w's device
             self.operands = dualsim.make_partitioned_operands(
@@ -167,7 +171,10 @@ class CompiledPlan:
             else:
                 make = dualsim.make_sparse_operands
             self.operands = make(self.csoi, db, adj_cache, device=self.device)
-        self.metrics.operand_builds += 1
+        self._scatter = torch.as_tensor(self._scatter_ids, device=self.device)
+        spans.end("plan.operands", t1, adj_cache_hit=adj_before is not None and all(
+            adj_before.get(k) is v for k, v in dict.items(adj_cache)))
+        self.metrics = PlanMetrics(operand_builds=1)
         self._adj_cache = adj_cache
         # incremental maintenance state (DESIGN.md Sect. 8): the last solved
         # chi per constant tuple (bit-packed, 8x smaller than bool), and
@@ -176,8 +183,6 @@ class CompiledPlan:
         self._chi_memo: BoundedDict = BoundedDict(capacity=4)
         self._warm: dict = {}
         self.last_sweeps: int | None = None
-        self._scatter = torch.as_tensor(self._scatter_ids, device=self.device)
-        self.metrics.build_seconds = time.perf_counter() - t0
 
     # ------------------------------------------------------------------ #
     @property
@@ -255,6 +260,7 @@ class CompiledPlan:
         """
         # the packed-chi engines take constants, init and warm starts as
         # packed words; dense and packed take them as bool rows
+        t0 = spans.begin()
         rows = self.const_rows(bindings)
         if self._packed_chi:
             rows = bitops.to_words(bitops.pack_np(rows), self.device)
@@ -269,14 +275,23 @@ class CompiledPlan:
                 else torch.as_tensor(warm, device=self.device)
             )
             self.metrics.warm_resumes += 1
+        spans.end("solve.bind", t0)
+        # the sweeps end at their last convergence read; chi's unpack, queued
+        # behind it on the device, is waited for by the copy back
+        t = spans.begin()
         chi, sweeps = self._run(rows, chi0)
+        spans.end("solve.sweeps", t, sweeps=sweeps)
         self.metrics.executions += 1
+        t = spans.begin()
         chi = chi.cpu().numpy()
+        spans.end("solve.readback", t, bytes=chi.nbytes)
         self.last_sweeps = sweeps
         if self.incremental:
             # bit-packed: 8x smaller than the bool chi it warm-starts, and
             # fed straight back into the packed sweep (DESIGN.md Sect. 9)
+            t = spans.begin()
             self._chi_memo[key] = bitops.pack_np(chi)
+            spans.end("solve.memo", t)
         return chi, sweeps
 
     def patch_graph(

@@ -59,10 +59,12 @@ request and would fail anywhere.
 """
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
 from typing import Sequence
 
+from repro_torch import spans
 from repro_torch.db.results import ResultSet
 from repro_torch.distributed.fault import Heartbeat, RestartPolicy, StragglerMonitor
 from repro_torch.engine.engine import Engine
@@ -79,6 +81,17 @@ ROUTABLE = (HEALTHY, SUSPECT)
 
 class NoHealthyReplica(RuntimeError):
     """Every replica is quarantined or rebuilding: nothing to route to."""
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchTrace:
+    """What a traced attempt carries to its worker thread: the id of its
+    ``serve.batch`` span, the riders' request ids in payload order, and the
+    clock (:data:`repro_torch.spans.clock`) at the executor call."""
+
+    span: int
+    requests: tuple[int, ...]
+    t_call: int
 
 
 class Replica:
@@ -304,7 +317,7 @@ class ReplicaRouter:
         return self.execute_on(rep, prepared)
 
     def execute_on(
-        self, rep: Replica, prepared: Sequence
+        self, rep: Replica, prepared: Sequence, trace: BatchTrace | None = None
     ) -> tuple[list[ResultSet | Exception], str]:
         """Execute one prepared batch on an already-routed replica.
 
@@ -320,7 +333,12 @@ class ReplicaRouter:
         plane; per-request outcome exceptions do not.  Health reports are
         epoch-fenced: a batch that started before a rebuild cannot mark the
         rebuilt engine.  The routed slot is always released.
+
+        With ``trace``, the wait from the executor call to the replica's
+        lock is a ``serve.replica_wait`` span, and the engine's spans are
+        children of the attempt's ``serve.batch`` span.
         """
+        span, rids = (trace.span, trace.requests) if trace is not None else (None, None)
         with self._route_lock:
             eng = rep.engine
             lk = rep.lock
@@ -330,22 +348,27 @@ class ReplicaRouter:
             if self._faults is not None:
                 self._faults.on_batch_start(rep.name)
             with lk:
+                if trace is not None:
+                    spans.record("serve.replica_wait", trace.t_call, spans.clock(),
+                                 parent=span, replica=rep.name)
                 # the slow-fault penalty scales *solve* time only: clocking
                 # it from before the lock would multiply each batch's wait
                 # behind its predecessor's sleep — an exponential backlog
                 # no real 10x-slower replica exhibits
                 t_solve = time.monotonic()
                 try:
-                    raws = eng.execute_prepared(list(prepared))
+                    with spans.inside(span, rids):
+                        raws = eng.execute_prepared(list(prepared))
                     snap = eng.db
                     out: list[ResultSet | Exception] = [
                         ResultSet(r, snap) for r in raws
                     ]
                 except Exception:
                     out = []
-                    for pr in prepared:
+                    for i, pr in enumerate(prepared):
                         try:
-                            raw = eng.execute_prepared([pr])[0]
+                            with spans.inside(span, None if rids is None else rids[i:i + 1]):
+                                raw = eng.execute_prepared([pr])[0]
                             out.append(ResultSet(raw, eng.db))
                         except Exception as exc:  # this request's own fault
                             out.append(exc)

@@ -51,17 +51,19 @@ from __future__ import annotations
 
 import asyncio
 import dataclasses
+import itertools
 import math
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import AsyncIterator
 
+from repro_torch import spans
 from repro_torch.db.results import ResultSet
 from repro_torch.engine import cost as cost_mod
 
 from .fairness import DeficitRoundRobin
 from .metrics import ServeMetrics
-from .router import NoHealthyReplica, ReplicaRouter
+from .router import BatchTrace, NoHealthyReplica, ReplicaRouter
 
 #: ServeResult.outcome values: exactly one per submitted request.
 OUTCOMES = ("ok", "overloaded", "cost", "deadline", "error", "timeout")
@@ -108,14 +110,19 @@ class ServeResult:
 class _Pending:
     """One admitted request waiting in the fair scheduler."""
 
-    __slots__ = ("prepared", "tenant", "t_submit", "deadline", "future")
+    __slots__ = ("prepared", "tenant", "t_submit", "deadline", "future",
+                 "rid", "span", "t_ns")
 
-    def __init__(self, prepared, tenant, t_submit, deadline, future):
+    def __init__(self, prepared, tenant, t_submit, deadline, future,
+                 rid, span, t_ns):
         self.prepared = prepared
         self.tenant = tenant
         self.t_submit = t_submit
         self.deadline = deadline
         self.future = future
+        self.rid = rid  # the request id, assigned at submit
+        self.span = span  # its serve.request span id; None untraced
+        self.t_ns = t_ns  # submit on the spans' clock (traced only)
 
 
 class AsyncServer:
@@ -214,6 +221,7 @@ class AsyncServer:
             thread_name_prefix="repro-torch-serve",
         )
         self._cost_memo: dict[str, float] = {}  # template key -> admission cost
+        self._request_ids = itertools.count(1)
         self._loop: asyncio.AbstractEventLoop | None = None
         self._wake: asyncio.Event | None = None
         self._sem: asyncio.Semaphore | None = None
@@ -284,44 +292,57 @@ class AsyncServer:
         request's future is already resolved when this returns.  Must be
         called on the server's event loop.  ``query`` may be text, a
         parsed query, or a ``Q`` builder.
+
+        Each request gets an id here.  While tracing
+        (:mod:`repro_torch.spans`), it is a ``serve.request`` span from here
+        to its outcome, parent of its ``parse`` span (its wait in the queue is
+        ``ServeResult.queue_ms``).
         """
         if not self._running:
             raise RuntimeError("server is not running")
         fut: asyncio.Future[ServeResult] = self._loop.create_future()
         now = time.monotonic()
+        rid = next(self._request_ids)
+        span = spans.new_id()
+        t_ns = spans.clock() if span is not None else 0
         self.metrics.on_submit(tenant)
+
+        def shed(res: ServeResult) -> asyncio.Future[ServeResult]:
+            if span is not None:
+                spans.record("serve.request", t_ns, spans.clock(), id=span,
+                             request=rid, tenant=tenant, outcome=res.outcome)
+            fut.set_result(res)
+            return fut
 
         # gate 1: bounded queue — shed instead of queueing without bound
         if len(self._scheduler) >= self.max_queue:
             self.metrics.on_shed(tenant, "overloaded")
-            fut.set_result(ServeResult(
+            return shed(ServeResult(
                 outcome="overloaded", tenant=tenant,
                 detail=f"queue full ({self.max_queue})",
             ))
-            return fut
 
         # parse + canonicalize once; syntax errors are the *request's*
         # fault and resolve its own future, they never enter the queue
         try:
-            prepared = self._db._engine.prepare(self._db._coerce(query))
+            with spans.inside(span, (rid,)):
+                prepared = self._db._engine.prepare(self._db._coerce(query))
         except Exception as exc:
             self.metrics.on_error(tenant)
-            fut.set_result(ServeResult(
+            return shed(ServeResult(
                 outcome="error", tenant=tenant, error=exc,
                 detail="rejected at parse",
             ))
-            return fut
 
         # gate 2: model-cost cap (Pspace-complete worst cases stay out)
         if self.cost_cap is not None:
             est = self._admission_cost(prepared[0])
             if est > self.cost_cap:
                 self.metrics.on_shed(tenant, "cost")
-                fut.set_result(ServeResult(
+                return shed(ServeResult(
                     outcome="cost", tenant=tenant,
                     detail=f"estimated cost {est:.3g} > cap {self.cost_cap:.3g}",
                 ))
-                return fut
 
         # gate 3: deadline already unmeetable
         deadline_s = (
@@ -329,12 +350,11 @@ class AsyncServer:
         ) / 1e3
         if deadline_s <= 0:
             self.metrics.on_shed(tenant, "deadline")
-            fut.set_result(ServeResult(
+            return shed(ServeResult(
                 outcome="deadline", tenant=tenant, detail="expired at admission",
             ))
-            return fut
 
-        item = _Pending(prepared, tenant, now, now + deadline_s, fut)
+        item = _Pending(prepared, tenant, now, now + deadline_s, fut, rid, span, t_ns)
         depth = self._scheduler.enqueue(tenant, item)
         self.metrics.on_admit(depth)
         self._wake.set()
@@ -476,11 +496,14 @@ class AsyncServer:
                 self._fail_all(live, exc, "no healthy replica")
                 return
             payload = [p.prepared for p in live]
+            trace = None
+            if spans.enabled():
+                trace = BatchTrace(spans.new_id(), tuple(p.rid for p in live), spans.clock())
             try:
                 if self._faults is not None:
                     self._faults.on_dispatch()
                 exec_fut = self._loop.run_in_executor(
-                    self._pool, self.router.execute_on, rep, payload
+                    self._pool, self.router.execute_on, rep, payload, trace
                 )
             except Exception as exc:
                 # the executor itself rejected the batch (pool shut down,
@@ -492,9 +515,15 @@ class AsyncServer:
             watchdog = self._watchdog_budget(live, remaining)
             t0 = time.monotonic()
             try:
-                outcomes, replica = await self._await_attempt(
-                    exec_fut, rep, tried, payload, watchdog
-                )
+                try:
+                    outcomes, replica = await self._await_attempt(
+                        exec_fut, rep, tried, payload, watchdog, trace
+                    )
+                finally:
+                    if trace is not None:
+                        spans.record("serve.batch", trace.t_call, spans.clock(),
+                                     id=trace.span, requests=list(trace.requests),
+                                     replica=rep.name, attempt=attempt)
             except asyncio.TimeoutError:
                 # watchdog overrun: abandon the routed attempt (its thread
                 # finishes in the background; health reports from it are
@@ -548,7 +577,7 @@ class AsyncServer:
                     ))
             return
 
-    async def _await_attempt(self, exec_fut, rep, tried, payload, watchdog):
+    async def _await_attempt(self, exec_fut, rep, tried, payload, watchdog, trace):
         """Await one routed attempt under its watchdog, hedging if enabled.
 
         Never cancels the executor future — a running solve cannot be
@@ -585,7 +614,8 @@ class AsyncServer:
         self.metrics.on_hedge()
         try:
             hedge_fut = self._loop.run_in_executor(
-                self._pool, self.router.execute_on, rep2, payload
+                self._pool, self.router.execute_on, rep2, payload,
+                None if trace is None else dataclasses.replace(trace, t_call=spans.clock()),
             )
         except Exception:
             self.router.release(rep2)
@@ -697,6 +727,9 @@ class AsyncServer:
         """
         if p.future.done():
             return
+        if p.span is not None:
+            spans.record("serve.request", p.t_ns, spans.clock(), id=p.span,
+                         request=p.rid, tenant=p.tenant, outcome=res.outcome)
         if res.outcome == "ok":
             self.metrics.on_complete(
                 p.tenant, res.queue_ms / 1e3, res.total_ms / 1e3
