@@ -1,12 +1,14 @@
 """Edge-labeled directed graphs and graph databases (paper Sect. 2).
 
 A graph is ``G = (V, Sigma, E)`` with ``E ⊆ V × Sigma × V``.  Nodes and labels
-are dictionary-encoded to dense ints.  Three physical layouts coexist:
+are dictionary-encoded to dense ints.  Four physical layouts coexist:
 
 * **triples** — ``(E, 3) int32`` array of (src, label, dst); canonical form.
 * **per-label CSR** — forward map F_a / backward map B_a (paper's adjacency
   maps) as index arrays; used by the numpy reference engines and the join
   evaluator.
+* **triple positions** — the positions of the triples by subject, by object
+  and by label (:class:`TripleIndex`); used by pruning.
 * **dense boolean / bit-packed adjacency** — per-label ``bool[n, n]`` or
   ``uint32[n, n/32]`` matrices; used by the MXU / Pallas engines (viable up to
   ~64k nodes per shard; the sparse edge-list engine covers DB scale).
@@ -14,6 +16,7 @@ are dictionary-encoded to dense ints.  Three physical layouts coexist:
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Iterable
 
 import numpy as np
@@ -26,6 +29,42 @@ from . import bitops
 # engine.cost refuses the dense-layout engine tier before it gets here
 # (the RDF workload runs where this is structurally impossible).
 DENSE_ADJ_MAX_BYTES = 2 << 30
+
+# Builds every snapshot's triple index once: replicas sharing a snapshot may
+# reach their first prune together.
+_TRIPLE_INDEX_LOCK = threading.Lock()
+
+
+@dataclasses.dataclass(frozen=True)
+class TripleIndex:
+    """The positions of a snapshot's triples in three orders, each stably
+    sorted, with CSR pointers: the triples of subject ``u`` are
+    ``triples[pos_s[ptr_s[u]:ptr_s[u + 1]]]``, those of object ``u`` the same
+    through ``ptr_o`` / ``pos_o``, and those of label ``a`` through ``ptr_l``
+    / ``pos_l``.  Positions are int32 and pointers int64."""
+
+    ptr_s: np.ndarray  # [n_nodes + 1]
+    pos_s: np.ndarray  # [E]
+    ptr_o: np.ndarray  # [n_nodes + 1]
+    pos_o: np.ndarray  # [E]
+    ptr_l: np.ndarray  # [n_labels + 1]
+    pos_l: np.ndarray  # [E]
+
+    @staticmethod
+    def build(g: "Graph") -> "TripleIndex":
+        ptr_s, pos_s = _positions(g.triples[:, 0], g.n_nodes)
+        ptr_o, pos_o = _positions(g.triples[:, 2], g.n_nodes)
+        ptr_l, pos_l = _positions(g.triples[:, 1], g.n_labels)
+        return TripleIndex(ptr_s, pos_s, ptr_o, pos_o, ptr_l, pos_l)
+
+
+def _positions(keys: np.ndarray, size: int) -> tuple[np.ndarray, np.ndarray]:
+    """``(ptr, pos)``: the positions of ``keys`` stably sorted by key, and
+    where each key's run starts, for keys in ``[0, size)``."""
+    pos = np.argsort(keys, kind="stable").astype(np.int32)
+    ptr = np.zeros(size + 1, dtype=np.int64)
+    np.cumsum(np.bincount(keys, minlength=size), out=ptr[1:])
+    return ptr, pos
 
 
 @dataclasses.dataclass
@@ -43,6 +82,7 @@ class Graph:
     _bwd_csr: dict | None = dataclasses.field(default=None, repr=False)
     _node_index: dict | None = dataclasses.field(default=None, repr=False)
     _label_index: dict | None = dataclasses.field(default=None, repr=False)
+    _triple_index: TripleIndex | None = dataclasses.field(default=None, repr=False)
 
     # ------------------------------------------------------------------ #
     # constructors
@@ -94,6 +134,15 @@ class Graph:
             assert self.label_names is not None
             self._label_index = {n: i for i, n in enumerate(self.label_names)}
         return self._label_index
+
+    def triple_index(self) -> TripleIndex:
+        """The snapshot's :class:`TripleIndex`, built at first use, once
+        however many threads ask together."""
+        if self._triple_index is None:
+            with _TRIPLE_INDEX_LOCK:
+                if self._triple_index is None:
+                    self._triple_index = TripleIndex.build(self)
+        return self._triple_index
 
     def node_id(self, name: str) -> int:
         return self.node_index()[name]

@@ -78,8 +78,14 @@ class EngineMetrics:
     ``prune``, and their parts ``plan.compile`` and ``plan.operands`` (plans
     built from scratch), ``solve.bind``, ``solve.sweeps``,
     ``solve.readback`` and ``solve.memo``, ``prune.triples`` and
-    ``prune.collect``.  ``prune_triples_scanned`` counts the triples whose
-    membership pruning evaluated and ``prune_survivors`` those kept;
+    ``prune.collect``.  ``prune_triples_scanned`` counts the triple
+    positions pruning visited through the snapshot's triple index (per
+    pattern edge, those of the cheapest side: the subject's candidates' out
+    triples, the object's candidates' in triples, or the label's triples)
+    and ``prune_survivors`` those kept; ``prune_edges_by_subject``,
+    ``prune_edges_by_object`` and ``prune_edges_by_label`` count the pattern
+    edges evaluated from each side (their sum is the pattern edges whose
+    label the graph holds, per distinct constant set);
     ``rows_solved`` counts the chi rows the fixpoint solved (bucket x
     variables a microbatch) and ``rows_useful`` those of distinct constant
     sets.
@@ -99,6 +105,9 @@ class EngineMetrics:
     adj_rebuilds_saved: int = 0  # adjacency kept because its labels were untouched
     prune_triples_scanned: int = 0
     prune_survivors: int = 0
+    prune_edges_by_subject: int = 0
+    prune_edges_by_object: int = 0
+    prune_edges_by_label: int = 0
     rows_solved: int = 0
     rows_useful: int = 0
 
@@ -235,6 +244,9 @@ class Engine:
         self._warm_solves = 0  # guarded-by: _stats_lock
         self._adj_rebuilds_saved = 0  # guarded-by: _stats_lock
         self._prune_scanned = 0  # guarded-by: _stats_lock
+        self._prune_by_subject = 0  # guarded-by: _stats_lock
+        self._prune_by_object = 0  # guarded-by: _stats_lock
+        self._prune_by_label = 0  # guarded-by: _stats_lock
         self._prune_survivors = 0  # guarded-by: _stats_lock
         self._rows_solved = 0  # guarded-by: _stats_lock
         self._rows_useful = 0  # guarded-by: _stats_lock
@@ -576,52 +588,55 @@ class Engine:
                 self._rows_useful += len(uniq) * n_vars
                 self._take_stages_locked(stages)  # plan, solve and their parts
 
-            scanned = survivors = 0
-            try:
-                for i, consts in enumerate(uniq):
-                    riders = by_consts[consts]
-                    t = spans.begin()
-                    chi_i = chi[plan.layout.chi_slice(i)]
-                    t_part = spans.begin()
-                    mask, stats = pruning.prune_triples(plan.base_soi, chi_i, self.db)
-                    spans.end("prune.triples", t_part, requests=None if rids is None else [
-                        rids[idx] for idx, _ in riders])
-                    scanned += pruning.triples_scanned(plan.base_soi, self.db)
-                    survivors += stats.n_after
-                    t_part = spans.begin()
-                    canon_rows = soi_mod.collect(plan.base_soi, chi_i)
-                    spans.end("prune.collect", t_part)
-                    t_prune = spans.end("prune", t)
-                    for idx, inst in riders:
-                        out.append(
-                            (
-                                idx,
-                                ExecResult(
-                                    survivors=mask,
-                                    stats=stats,
-                                    bindings=inst.rename_bindings(canon_rows),
-                                    sweeps=sweeps,
-                                    engine=plan.engine,
-                                    template_keys=(plan.template.key,),
-                                    cache_hit=hit,
-                                    batch=bucket,
-                                    timings={
-                                        "plan": t_plan,
-                                        "solve": t_solve,
-                                        "prune": t_prune,
-                                    },
-                                    microbatch=mb_id,
-                                    rows=len(uniq),
-                                ),
+            survivors = 0
+            with pruning.counting() as visits:
+                try:
+                    for i, consts in enumerate(uniq):
+                        riders = by_consts[consts]
+                        t = spans.begin()
+                        chi_i = chi[plan.layout.chi_slice(i)]
+                        t_part = spans.begin()
+                        mask, stats = pruning.prune_triples(plan.base_soi, chi_i, self.db)
+                        spans.end("prune.triples", t_part, requests=None if rids is None else [
+                            rids[idx] for idx, _ in riders])
+                        survivors += stats.n_after
+                        t_part = spans.begin()
+                        canon_rows = soi_mod.collect(plan.base_soi, chi_i)
+                        spans.end("prune.collect", t_part)
+                        t_prune = spans.end("prune", t)
+                        for idx, inst in riders:
+                            out.append(
+                                (
+                                    idx,
+                                    ExecResult(
+                                        survivors=mask,
+                                        stats=stats,
+                                        bindings=inst.rename_bindings(canon_rows),
+                                        sweeps=sweeps,
+                                        engine=plan.engine,
+                                        template_keys=(plan.template.key,),
+                                        cache_hit=hit,
+                                        batch=bucket,
+                                        timings={
+                                            "plan": t_plan,
+                                            "solve": t_solve,
+                                            "prune": t_prune,
+                                        },
+                                        microbatch=mb_id,
+                                        rows=len(uniq),
+                                    ),
+                                )
                             )
-                        )
-            finally:
-                # the prunes that ran, also where a later one raised (the
-                # router then retries each request alone)
-                with self._stats_lock:
-                    self._prune_scanned += scanned
-                    self._prune_survivors += survivors
-                    self._take_stages_locked(stages)
+                finally:
+                    # the prunes that ran, also where a later one raised (the
+                    # router then retries each request alone)
+                    with self._stats_lock:
+                        self._prune_scanned += visits.triples
+                        self._prune_by_subject += visits.by_subject
+                        self._prune_by_object += visits.by_object
+                        self._prune_by_label += visits.by_label
+                        self._prune_survivors += survivors
+                        self._take_stages_locked(stages)
         spans.end("microbatch", t_mb, microbatch=mb_id, template=plan.template.key,
                   bucket=bucket, rows=len(uniq),
                   requests=None if rids is None else [rids[idx] for idx, _ in requests])
@@ -661,6 +676,9 @@ class Engine:
                 adj_rebuilds_saved=self._adj_rebuilds_saved,
                 prune_triples_scanned=self._prune_scanned,
                 prune_survivors=self._prune_survivors,
+                prune_edges_by_subject=self._prune_by_subject,
+                prune_edges_by_object=self._prune_by_object,
+                prune_edges_by_label=self._prune_by_label,
                 rows_solved=self._rows_solved,
                 rows_useful=self._rows_useful,
             )

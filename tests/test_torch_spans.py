@@ -25,7 +25,9 @@ STAGES = ("parse", "plan", "plan.compile", "plan.operands", "solve", "solve.bind
 PARTS = {"plan": ("plan.compile", "plan.operands"),
          "solve": ("solve.bind", "solve.sweeps", "solve.readback", "solve.memo"),
          "prune": ("prune.triples", "prune.collect")}
-COUNTERS = ("prune_triples_scanned", "prune_survivors", "rows_solved", "rows_useful")
+COUNTERS = ("prune_triples_scanned", "prune_survivors", "prune_edges_by_subject",
+            "prune_edges_by_object", "prune_edges_by_label", "rows_solved", "rows_useful")
+SIDES = ("prune_edges_by_subject", "prune_edges_by_object", "prune_edges_by_label")
 
 
 @pytest.fixture()
@@ -128,10 +130,17 @@ def test_counters_count_scans_and_rows(db, riders, bucket):
     plan, _ = eng.plan_for(eng.prepare(texts[0])[1], bucket)
     n_vars = plan.base_soi.n_vars
     moved = {k: getattr(after, k) - getattr(before, k) for k in COUNTERS}
-    assert moved["prune_triples_scanned"] == riders * len(
+    # what the prunes of the riders' distinct sets visited, one by one
+    consts = [eng.prepare(t)[1].constants for t in texts]
+    chi, _ = plan.execute(consts + [consts[-1]] * (bucket - riders))  # padded as served
+    with pruning.counting() as visits:
+        for i in range(riders):
+            pruning.prune_triples(plan.base_soi, chi[plan.layout.chi_slice(i)], db.graph)
+    assert moved["prune_triples_scanned"] == visits.triples
+    assert 0 < moved["prune_triples_scanned"] < riders * len(
         plan.base_soi.pattern_edges) * db.graph.n_edges
-    assert moved["prune_triples_scanned"] == riders * pruning.triples_scanned(
-        plan.base_soi, db.graph)
+    assert [moved[k] for k in SIDES] == [visits.by_subject, visits.by_object, visits.by_label]
+    assert sum(moved[k] for k in SIDES) == riders * len(plan.base_soi.pattern_edges)
     assert moved["prune_survivors"] == sum(r.stats.n_after for r in results)
     assert moved["rows_solved"] == bucket * n_vars
     assert moved["rows_useful"] == riders * n_vars
@@ -141,9 +150,16 @@ def test_counters_count_scans_and_rows(db, riders, bucket):
 
 
 def test_unresolved_labels_are_not_scanned(db):
-    before = db.stats().prune_triples_scanned
-    db.query("{ ?s noSuchLabel ?o . ?s memberOf ?d }")
-    assert db.stats().prune_triples_scanned - before == db.graph.n_edges
+    before = db.stats()
+    rs = db.query("{ ?s noSuchLabel ?o . ?s memberOf ?d }")
+    after = db.stats()
+    moved = {k: getattr(after, k) - getattr(before, k) for k in COUNTERS}
+    assert sum(moved[k] for k in SIDES) == 1  # memberOf alone
+    assert rs.stats.per_edge_survivors == [0, 0]
+    # the fixpoint leaves ?s and ?d no candidates, so memberOf's subject
+    # side holds no triple to visit
+    assert moved["prune_edges_by_subject"] == 1
+    assert moved["prune_triples_scanned"] == 0
 
 
 def test_a_failed_prune_still_commits_its_solve(db, monkeypatch):
@@ -186,7 +202,9 @@ def test_tracing_off_keeps_no_record_and_stages_still_move(db):
     db.query(MEMBERS_OF.format(uni="Univ0"))
     moved = db.stats()
     for k in COUNTERS:
-        assert getattr(moved, k) > getattr(after, k), k
+        if k not in SIDES:
+            assert getattr(moved, k) > getattr(after, k), k
+    assert sum(getattr(moved, k) - getattr(after, k) for k in SIDES) == 2
     for stage in STAGES:
         assert moved.stage_seconds[stage] > after.stage_seconds.get(stage, 0.0), stage
 
