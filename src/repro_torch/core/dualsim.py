@@ -61,6 +61,7 @@ import numpy as np
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from repro_torch import spans
 from repro_torch.distributed import ctx
 from repro_torch.distributed import shard as sh
 from repro_torch.kernels.bitmm import kernel as bitmm_kernel
@@ -791,10 +792,17 @@ def _apply_copies_packed(chi_p: torch.Tensor, ops: Operands) -> torch.Tensor:
     The appended pad row is all-ones *including* trailing pad bits — AND is
     its identity, and chi's own pad bits are already zero, so no pad bit can
     ever turn on.
+
+    A pass with copy inequalities is the span ``solve.copies`` (inside the
+    caller's ``solve.sweeps``), with the inequalities and chi's rows as its
+    attributes; on a card it times the pass's dispatch, not its kernels.
     """
     if ops.copy_rhs.shape[0] == 0:
         return chi_p
-    return torch.bitwise_and(chi_p, _and_of_rows(chi_p, ops.copy_rhs, ops.var_copy))
+    t = spans.begin()
+    out = torch.bitwise_and(chi_p, _and_of_rows(chi_p, ops.copy_rhs, ops.var_copy))
+    spans.end("solve.copies", t, copies=ops.copy_rhs.shape[0], rows=chi_p.shape[0])
+    return out
 
 
 def _per_var_mask_packed(y_p: torch.Tensor, m: int, ops: Operands) -> torch.Tensor:

@@ -74,21 +74,26 @@ class EngineMetrics:
     delta touched none of an entry's labels (DESIGN.md Sect. 8).
 
     ``stage_seconds`` sums the engine's spans by name
-    (:mod:`repro_torch.spans`): the stages ``parse``, ``plan``, ``solve`` and
-    ``prune``, and their parts ``plan.compile`` and ``plan.operands`` (plans
-    built from scratch), ``solve.bind``, ``solve.sweeps``,
-    ``solve.readback`` and ``solve.memo``, ``prune.triples`` and
-    ``prune.collect``.  ``prune_triples_scanned`` counts the triple
-    positions pruning visited through the snapshot's triple index (per
-    pattern edge, those of the cheapest side: the subject's candidates' out
-    triples, the object's candidates' in triples, or the label's triples)
-    and ``prune_survivors`` those kept; ``prune_edges_by_subject``,
-    ``prune_edges_by_object`` and ``prune_edges_by_label`` count the pattern
-    edges evaluated from each side (their sum is the pattern edges whose
-    label the graph holds, per distinct constant set);
-    ``rows_solved`` counts the chi rows the fixpoint solved (bucket x
-    variables a microbatch) and ``rows_useful`` those of distinct constant
-    sets.
+    (:mod:`repro_torch.spans`): the stages ``parse``, ``plan``, ``solve``
+    and ``prune``, and their parts ``plan.compile`` and ``plan.operands``
+    (plans built from scratch), ``solve.bind``, ``solve.sweeps``,
+    ``solve.readback`` and ``solve.memo`` (``solve.copies``, the sweeps'
+    passes over copy inequalities, inside ``solve.sweeps``),
+    ``prune.triples`` and ``prune.collect``.  ``prune_triples_scanned``
+    counts the triple positions pruning visited through the snapshot's
+    triple index (per pattern edge, those of the cheapest side: the
+    subject's candidates' out triples, the object's candidates' in triples,
+    or the label's triples) and ``prune_survivors`` those kept;
+    ``prune_edges_by_subject``, ``prune_edges_by_object`` and
+    ``prune_edges_by_label`` count the pattern edges evaluated from each
+    side (their sum is the pattern edges whose label the graph holds, per
+    distinct constant set); ``rows_solved`` counts the chi rows the fixpoint
+    solved (bucket x variables a microbatch) and ``rows_useful`` those of
+    distinct constant sets; ``copy_ineqs_solved`` the copy inequalities of
+    OPTIONAL the sweeps applied, each one chi row ANDed into another (sweeps
+    x bucket x the template's copy inequalities a microbatch; 0 for a plan
+    with none), whose passes the packed-chi engines time as
+    ``solve.copies``.
     """
 
     requests: int
@@ -110,6 +115,7 @@ class EngineMetrics:
     prune_edges_by_label: int = 0
     rows_solved: int = 0
     rows_useful: int = 0
+    copy_ineqs_solved: int = 0
 
     @property
     def plan_builds(self) -> int:
@@ -250,6 +256,7 @@ class Engine:
         self._prune_survivors = 0  # guarded-by: _stats_lock
         self._rows_solved = 0  # guarded-by: _stats_lock
         self._rows_useful = 0  # guarded-by: _stats_lock
+        self._copy_ineqs_solved = 0  # guarded-by: _stats_lock
         self._engine_counts: dict[str, int] = {}  # guarded-by: _stats_lock
         self._stage_seconds: dict[str, float] = {}  # guarded-by: _stats_lock
         # fault-injection hook armed by the serving layer (a
@@ -586,6 +593,7 @@ class Engine:
                 )
                 self._rows_solved += bucket * n_vars
                 self._rows_useful += len(uniq) * n_vars
+                self._copy_ineqs_solved += sweeps * bucket * len(plan.base_soi.copy_ineqs)
                 self._take_stages_locked(stages)  # plan, solve and their parts
 
             survivors = 0
@@ -681,6 +689,7 @@ class Engine:
                 prune_edges_by_label=self._prune_by_label,
                 rows_solved=self._rows_solved,
                 rows_useful=self._rows_useful,
+                copy_ineqs_solved=self._copy_ineqs_solved,
             )
 
     def metrics(self) -> EngineMetrics:
